@@ -1,0 +1,215 @@
+"""Command-line interface of the PyTorch port.
+
+The flag surface and validation of ``sift4g_tpu/cli.py`` (the reference's
+getopt surface, main.cpp:21-42 and :163-186), on one CUDA device.  The
+scorer backend picks the device: ``cuda`` (the default, also ``auto``)
+runs the grouped CUDA kernel on ``cuda:<card>``, ``torch`` runs its plain
+PyTorch twin on the CPU and ``native`` the threaded C++ DP.  A host
+without a GPU is refused under ``cuda``; nothing falls back to the CPU.
+
+What the port does not carry yet is refused with the ROADMAP item that
+will port it: the serve daemon, multi-host runs, device prediction, the
+overlapped pipeline, the device-resident database and more than one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from . import __version__
+from .align import BACKENDS, resolve_backend
+from .pipeline import PipelineConfig, run_pipeline
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="sift4g-tpu-torch",
+        description="SIFT4G on an NVIDIA GPU (PyTorch + CUDA): predicts whether "
+        "amino-acid substitutions are TOLERATED or DELETERIOUS.",
+    )
+    p.add_argument("-q", "--query", required=True,
+                   help="input fasta query file, or a directory of .fa/.fasta "
+                   "files processed sequentially in one process")
+    p.add_argument("-d", "--database", required=True, help="input fasta database file")
+    p.add_argument("-g", "--gap-open", type=int, default=10,
+                   help="gap opening penalty (default: 10)")
+    p.add_argument("-e", "--gap-extend", type=int, default=1,
+                   help="gap extension penalty (default: 1; must be <= gap-open)")
+    p.add_argument("--matrix", default="BLOSUM_62",
+                   help="similarity matrix: BLOSUM_30/45/50/62/70/80/90/250 "
+                   "(default: BLOSUM_62)")
+    p.add_argument("--evalue", type=float, default=0.0001,
+                   help="evalue threshold; higher-evalue alignments are filtered")
+    p.add_argument("--max-aligns", type=int, default=400,
+                   help="maximum number of alignments (default: 400)")
+    p.add_argument("--algorithm", default="SW", choices=["SW", "NW", "HW", "OV"],
+                   help="alignment algorithm (default: SW)")
+    p.add_argument("--out", default="", help="output directory for SIFT predictions")
+    p.add_argument("--sub-results", action="store_true",
+                   help="write alignment file and per-query selected alignments")
+    p.add_argument("--outfmt", default="bm9", choices=["bm0", "bm8", "bm9", "light"],
+                   help="alignment file format (default: bm9)")
+    p.add_argument("--kmer-length", type=int, default=5,
+                   help="k-mer length for database search: 3, 4 or 5 (default: 5)")
+    p.add_argument("--max-candidates", type=int, default=5000,
+                   help="sequences forwarded to the alignment phase (default: 5000)")
+    p.add_argument("--median-threshold", type=float, default=2.75,
+                   help="alignment diversity threshold (default: 2.75)")
+    p.add_argument("--subst", default="",
+                   help="directory containing per-query .subst files")
+    p.add_argument("--seq-id", type=int, default=100,
+                   help="drop alignments this %% identical to the query (default: 100)")
+    p.add_argument("-t", "--threads", type=int, default=8,
+                   help="host threads for search, traceback, selection and "
+                   "prediction (default: 8)")
+    p.add_argument("--cards", default="",
+                   help="the CUDA card used for alignment, as a digit string "
+                   "like the reference's (e.g. '1' = cuda:1; default cuda:0). "
+                   "One card only in this version")
+    p.add_argument("--backend", default="auto", choices=list(BACKENDS),
+                   help="alignment scoring backend (default: auto = cuda, the "
+                   "grouped CUDA kernel; torch = its PyTorch twin on the CPU; "
+                   "native = the threaded C++ DP)")
+    p.add_argument("--predict-backend", default="host", choices=["host", "device"],
+                   help="prediction math: host (float64, the only one ported yet)")
+    p.add_argument("--timings", action="store_true",
+                   help="print per-phase wall-clock and throughput counters")
+    p.add_argument("--cache-dir", default="",
+                   help="directory for the binary FASTA parse caches "
+                   "(default: next to each input file). Equivalent to "
+                   "SIFT4G_TPU_CACHE_DIR")
+    p.add_argument("--overlap", default="auto", choices=["auto", "on", "off"],
+                   help="overlap the prefilter scan with device scoring; not "
+                   "ported yet, so auto means off")
+    p.add_argument("--resident-db", default="auto", choices=["auto", "on", "off"],
+                   help="device-resident database scoring; not ported yet, so "
+                   "auto means off")
+    p.add_argument("--resume", action="store_true",
+                   help="skip queries whose .SIFTprediction already exists "
+                   "in --out (remaining outputs are byte-identical to a full "
+                   "run). Incompatible with --sub-results")
+    p.add_argument("--serve", default="", metavar="SOCKET",
+                   help="run as a daemon on this UNIX socket (not ported yet)")
+    p.add_argument("--connect", default="", metavar="SOCKET",
+                   help="submit to a --serve daemon (not ported yet)")
+    p.add_argument("--version", action="version", version=f"%(prog)s {__version__}")
+    return p
+
+
+def _fail(msg: str) -> int:
+    print(f"error: {msg}", file=sys.stderr)
+    return -1
+
+
+def _not_ported(what: str, item: int) -> int:
+    return _fail(f"{what} is not ported yet (ROADMAP item {item})")
+
+
+def main(argv=None, metrics=None) -> int:
+    """Run the CLI; ``metrics`` is an optional ``PhaseMetrics`` the phase
+    timings accumulate into (benchmark harnesses read it back)."""
+    raw_argv = list(sys.argv[1:] if argv is None else argv)
+    daemon_flags = ("--serve", "--connect", "--shutdown")
+    if any(a == f or a.startswith(f + "=") for a in raw_argv for f in daemon_flags):
+        return _not_ported("the serve daemon (--serve / --connect / --shutdown)", 12)
+    if os.environ.get("SIFT4G_COORDINATOR") or os.environ.get("SIFT4G_MULTIHOST"):
+        return _not_ported("a multi-host run (SIFT4G_COORDINATOR / SIFT4G_MULTIHOST)", 12)
+
+    args = build_parser().parse_args(raw_argv)
+    if args.predict_backend == "device":
+        return _not_ported("--predict-backend device", 9)
+    if args.overlap == "on":
+        return _not_ported("--overlap on", 10)
+    if args.resident_db == "on":
+        return _not_ported("--resident-db on", 8)
+
+    if args.cache_dir:
+        if not os.path.isdir(args.cache_dir):
+            try:
+                os.makedirs(args.cache_dir, exist_ok=True)
+            except OSError as exc:
+                return _fail(f"cannot create cache directory '{args.cache_dir}': {exc}")
+        os.environ["SIFT4G_TPU_CACHE_DIR"] = args.cache_dir
+
+    if os.path.isdir(args.query):
+        query_files = sorted(
+            os.path.join(args.query, f)
+            for f in os.listdir(args.query)
+            if f.endswith((".fa", ".fasta")) and not f.endswith(".s4gc")
+        )
+        if not query_files:
+            return _fail(f"no .fa/.fasta files in directory '{args.query}'")
+    elif os.path.isfile(args.query):
+        query_files = [args.query]
+    else:
+        return _fail(f"invalid query file path '{args.query}'")
+    if not os.path.isfile(args.database):
+        return _fail(f"invalid database file path '{args.database}'")
+    if not (2 < args.kmer_length < 6):
+        return _fail("kmer_length possible values = 3,4,5")
+    if args.max_candidates <= 0:
+        return _fail("invalid max candidates number")
+    if args.evalue <= 0:
+        return _fail("invalid evalue")
+    if args.max_aligns <= 0:
+        return _fail("invalid max alignments number")
+    if args.threads <= 0:
+        return _fail("invalid thread number")
+    if args.cards and not args.cards.isdigit():
+        return _fail(f"invalid cards list '{args.cards}' (digits only, e.g. '0')")
+    if len(args.cards) > 1:
+        return _not_ported("more than one card", 11)
+    if args.out and not os.path.isdir(args.out):
+        return _fail(f"invalid out directory path '{args.out}'")
+    if args.resume and args.sub_results:
+        return _fail("--resume is incompatible with --sub-results (the global "
+                     "alignments.txt would cover only the resumed subset)")
+    if args.subst and not os.path.isdir(args.subst):
+        return _fail(f"invalid substitutions directory path '{args.subst}'")
+    from sift4g_tpu.core.scorers import create_scorer
+
+    try:
+        create_scorer(args.matrix, args.gap_open, args.gap_extend)
+    except ValueError as exc:
+        return _fail(str(exc))
+    try:
+        backend, device = resolve_backend(args.backend, int(args.cards or 0))
+    except (RuntimeError, ValueError) as exc:
+        return _fail(str(exc))
+
+    for query_path in query_files:
+        if len(query_files) > 1:
+            print(f"** Processing query file: {query_path} **", file=sys.stderr)
+        cfg = PipelineConfig(
+            query_path=query_path,
+            database_path=args.database,
+            kmer_length=args.kmer_length,
+            max_candidates=args.max_candidates,
+            gap_open=args.gap_open,
+            gap_extend=args.gap_extend,
+            matrix=args.matrix,
+            max_alignments=args.max_aligns,
+            max_evalue=args.evalue,
+            algorithm=args.algorithm,
+            median_threshold=args.median_threshold,
+            subst_path=args.subst,
+            out_path=args.out,
+            sub_results=args.sub_results,
+            resume=args.resume,
+            out_format=args.outfmt,
+            sequence_identity=args.seq_id,
+            align_backend=backend,
+            timings=args.timings,
+            threads=args.threads,
+            overlap="off",
+            resident_db="off",
+            metrics=metrics,
+        )
+        run_pipeline(cfg, device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
