@@ -5,7 +5,7 @@ Backends of the port's BatchAligner:
 * ``cuda``: the grouped scorer as a hand-written CUDA kernel on one GPU;
 * ``torch``: the same grouped launch policy through the plain PyTorch
   twin on the CPU (tests and hosts without a GPU);
-* ``native``: the threaded C++ DP of ``sift4g_tpu.native``.
+* ``native``: the threaded C++ DP of the port's native host library.
 
 ``auto`` means ``cuda``.  A host without a GPU gets an error, never a
 silent run on the CPU: ask for ``torch`` or ``native`` by name there.

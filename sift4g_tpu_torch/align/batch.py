@@ -8,6 +8,13 @@ rungs, target slabs are filled by the native ``sift4g_pack_group``, and
 ``scores_many_async`` dispatches everything at once and fetches the
 results in ONE device-to-host copy when its closure runs.
 
+With a resident database (``align/resident.py``) a launch whose every
+group holds ``PackedTargets`` over ``resident.host_slotted`` ships only
+(G, B) int64 starts and int32 lengths and runs the resident kernel K3;
+any other launch packs a slab for K1.  Buckets need no segment key: the
+resident tensor is one, and the groups' rows stay ascending in database
+id as the screen's tie order needs.
+
 What differs is what the TPU constrained.  A launch costs microseconds
 here, not the tens of milliseconds of the TPU runtime, and the kernel
 keeps its DP state in device memory rather than VMEM, so:
@@ -29,16 +36,15 @@ from typing import List
 import numpy as np
 import torch
 
-from sift4g_tpu.align.batch import (
+from ..native import load as load_native
+from . import resolve_backend
+from .host import (
     PAD_CODE,
     PackedTargets,
     _length_rung,
     _length_rungs_vec,
     score_pairs_batch,
 )
-from sift4g_tpu.native import load as load_native
-
-from . import resolve_backend
 from .scan import (
     SCREEN_MAX_SCORE,
     SCREEN_ROW_MASK,
@@ -46,7 +52,7 @@ from .scan import (
     matrix32_from_scorer,
     screen_topk_words,
 )
-from .sw_grouped import sw_scores_grouped
+from .sw_grouped import sw_scores_grouped, sw_scores_grouped_resident
 
 # the screen packs the row index into 12 bits (align/scan.py)
 MAX_BATCH = SCREEN_ROW_MASK + 1
@@ -73,6 +79,7 @@ class BatchAligner:
         tail_policy: str = "pow2",
         tail_coalesce: bool = True,
         threads: int = 0,
+        resident=None,
     ):
         if device is None:
             backend, device = resolve_backend(backend)
@@ -102,6 +109,8 @@ class BatchAligner:
         self.threads = threads
         self.scratch_bytes = SCRATCH_BYTES[device.type]
         self.launches = 0
+        # device-resident database (align/resident.ResidentDB) or None
+        self.resident = resident
         self._matrix32 = None
 
     def _b_for(self, n_pad: int) -> int:
@@ -254,12 +263,23 @@ class BatchAligner:
 
         return fetch
 
+    def _part_resident(self, items, part) -> bool:
+        """True when every group of the launch reads the resident db."""
+        if self.resident is None:
+            return False
+        return all(
+            isinstance(items[ii][1], PackedTargets)
+            and items[ii][1].codes is self.resident.host_slotted
+            for ii, _ in part
+        )
+
     def _launch(self, items, part, n_pad, B, scr_k, smins, native_lib):
         """Pack one launch's groups into host buffers, queue the copies,
         the kernel and the screen; returns (result, B, part, k, host
         buffers).  The host buffers must live until the fetch: the copies
         from them are asynchronous."""
         G = len(part)
+        resident = self._part_resident(items, part)
         pin = self.device.type == "cuda"
         # distinct queries of this launch, concatenated
         local_off, local_parts, n_q = {}, [], 0
@@ -281,9 +301,14 @@ class BatchAligner:
         q_local[:] = PAD_CODE
         if local_parts:
             q_local[:n_q] = np.concatenate(local_parts)
-        tg_t = torch.empty((G, B, n_pad), dtype=torch.int8, pin_memory=pin)
+        if resident:
+            # (G, B) int64 starts into the resident tensor; padding rows
+            # keep start 0 and length 0
+            tg_t = torch.zeros((G, B), dtype=torch.int64, pin_memory=pin)
+        else:
+            tg_t = torch.empty((G, B, n_pad), dtype=torch.int8, pin_memory=pin)
         tg = tg_t.numpy()
-        if native_lib is None:
+        if native_lib is None and not resident:
             tg.fill(PAD_CODE)
         for gi, (item_idx, chunk_idx) in enumerate(part):
             targets = items[item_idx][1]
@@ -291,7 +316,10 @@ class BatchAligner:
             qlen[gi] = items[item_idx][0].shape[0]
             if smins is not None:
                 smin[gi] = smins[item_idx]
-            if native_lib is not None:
+            if resident:
+                tg[gi, : len(chunk_idx)] = targets.starts[chunk_idx]
+                tl[gi, : len(chunk_idx)] = targets.lens[chunk_idx]
+            elif native_lib is not None:
                 # bytes past each length stay uninitialized: the kernel
                 # never reads them and the twin masks them (& 31)
                 _pack_native(native_lib, targets, chunk_idx, n_pad, tg[gi], tl[gi])
@@ -305,13 +333,18 @@ class BatchAligner:
         meta_d = meta_t.to(dev, non_blocking=True)
         tg_d = tg_t.to(dev, non_blocking=True)
         o = G * B
-        scores = sw_scores_grouped(
-            meta_d[o + 3 * G :], meta_d[o : o + G], meta_d[o + G : o + 2 * G],
-            tg_d, meta_d[:o].view(G, B), self._matrix32,
-            mode=self.mode,
-            gap_open=self.scorer.gap_open,
-            gap_extend=self.scorer.gap_extend,
-        )
+        query_args = (meta_d[o + 3 * G :], meta_d[o : o + G], meta_d[o + G : o + 2 * G])
+        gaps = dict(mode=self.mode, gap_open=self.scorer.gap_open,
+                    gap_extend=self.scorer.gap_extend)
+        if resident:
+            scores = sw_scores_grouped_resident(
+                *query_args, self.resident.dev, tg_d, meta_d[:o].view(G, B),
+                self._matrix32, n_pad, **gaps,
+            )
+        else:
+            scores = sw_scores_grouped(
+                *query_args, tg_d, meta_d[:o].view(G, B), self._matrix32, **gaps,
+            )
         self.launches += 1
         k_eff = min(B, scr_k) if smins is not None else 0
         if k_eff:
@@ -321,7 +354,7 @@ class BatchAligner:
 
 def _pack_native(lib, targets, chunk_idx, n_pad, tg_rows, tl_row) -> None:
     """Fill one group's (B, n_pad) slab rows and lengths with the native
-    memcpy packer (``sift4g_tpu/native/pack.cpp``)."""
+    memcpy packer (``native/pack.cpp``)."""
     import ctypes
 
     if isinstance(targets, PackedTargets):

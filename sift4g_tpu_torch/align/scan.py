@@ -1,7 +1,8 @@
 """Plain PyTorch twin of the grouped affine-gap scorer (SW/NW/HW/OV).
 
-This is the port's reference for the hand-written CUDA kernel
-(``csrc/sw_grouped.cu``) and the scorer that ``--backend torch`` runs on
+This is the port's reference for the hand-written CUDA kernels
+(``csrc/sw_grouped.cu`` on target slabs, ``csrc/sw_grouped_resident.cu``
+on the resident database) and the scorer that ``--backend torch`` runs on
 the CPU.  It follows ``sift4g_tpu/align/xla.py`` in shape and layout, with
 two deliberate differences:
 
@@ -147,6 +148,37 @@ def align_scores_grouped(
     if mode == "HW":
         return row_best
     return torch.maximum(row_best, col_best).clamp(min=0)      # OV
+
+
+def align_scores_grouped_resident(
+    q_codes_all: torch.Tensor,   # (Qm,) int32 concatenated queries
+    q_offsets: torch.Tensor,     # (G,) int32
+    q_lens: torch.Tensor,        # (G,) int32
+    db_flat: torch.Tensor,       # (R,) uint8 resident codes, >= n_pad tail
+    t_starts: torch.Tensor,      # (G, B) int64 byte starts into db_flat
+    target_lens: torch.Tensor,   # (G, B) int32, each <= n_pad
+    matrix32: torch.Tensor,      # (32, 32) int32
+    n_pad: int,                  # the window (the length rung)
+    *,
+    mode: str = "SW",
+    gap_open: int = 10,
+    gap_extend: int = 1,
+) -> torch.Tensor:
+    """Scores (G, B) int32 of each group's query against the
+    ``n_pad``-byte windows ``db_flat[t_starts[g, b] :][:n_pad]``, as
+    ``sift4g_tpu/align/xla.py:align_scores_grouped_resident`` computes
+    them.  The bytes past a row's length are whatever follows it in the
+    database; :func:`align_scores_grouped` masks them as it masks a slab's
+    tails.  Unlike the XLA twin the starts are not rounded down to a slot
+    grain: the caller passes the starts it means."""
+    dev = db_flat.device
+    idx = t_starts.to(dev, torch.int64)[..., None] + torch.arange(
+        int(n_pad), dtype=torch.int64, device=dev
+    )
+    return align_scores_grouped(
+        q_codes_all, q_offsets, q_lens, db_flat[idx], target_lens, matrix32,
+        mode=mode, gap_open=gap_open, gap_extend=gap_extend,
+    )
 
 
 def align_scores(

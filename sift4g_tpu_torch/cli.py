@@ -7,9 +7,13 @@ runs the grouped CUDA kernel on ``cuda:<card>``, ``torch`` runs its plain
 PyTorch twin on the CPU and ``native`` the threaded C++ DP.  A host
 without a GPU is refused under ``cuda``; nothing falls back to the CPU.
 
+``--resident-db`` works as in the JAX package, with the rule of
+``pipeline._resident_refusal``; ``on`` that cannot hold the database
+fails with the reason instead of quietly keeping the slab path.
+
 What the port does not carry yet is refused with the ROADMAP item that
 will port it: the serve daemon, multi-host runs, device prediction, the
-overlapped pipeline, the device-resident database and more than one card.
+overlapped pipeline and more than one card.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import sys
 
 from . import __version__
 from .align import BACKENDS, resolve_backend
-from .pipeline import PipelineConfig, run_pipeline
+from .core.scorers import create_scorer
+from .pipeline import PipelineConfig, ResidentRefused, run_pipeline
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -84,8 +89,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="overlap the prefilter scan with device scoring; not "
                    "ported yet, so auto means off")
     p.add_argument("--resident-db", default="auto", choices=["auto", "on", "off"],
-                   help="device-resident database scoring; not ported yet, so "
-                   "auto means off")
+                   help="device-resident database scoring: upload the slot-packed "
+                   "database once and ship offsets instead of target bytes. "
+                   "auto = on a CUDA card when the candidates' bytes exceed the "
+                   "database's (default); on = always (fails if it cannot); "
+                   "no effect under --backend native")
     p.add_argument("--resume", action="store_true",
                    help="skip queries whose .SIFTprediction already exists "
                    "in --out (remaining outputs are byte-identical to a full "
@@ -122,8 +130,6 @@ def main(argv=None, metrics=None) -> int:
         return _not_ported("--predict-backend device", 9)
     if args.overlap == "on":
         return _not_ported("--overlap on", 10)
-    if args.resident_db == "on":
-        return _not_ported("--resident-db on", 8)
 
     if args.cache_dir:
         if not os.path.isdir(args.cache_dir):
@@ -168,8 +174,6 @@ def main(argv=None, metrics=None) -> int:
                      "alignments.txt would cover only the resumed subset)")
     if args.subst and not os.path.isdir(args.subst):
         return _fail(f"invalid substitutions directory path '{args.subst}'")
-    from sift4g_tpu.core.scorers import create_scorer
-
     try:
         create_scorer(args.matrix, args.gap_open, args.gap_extend)
     except ValueError as exc:
@@ -204,10 +208,13 @@ def main(argv=None, metrics=None) -> int:
             timings=args.timings,
             threads=args.threads,
             overlap="off",
-            resident_db="off",
+            resident_db=args.resident_db,
             metrics=metrics,
         )
-        run_pipeline(cfg, device)
+        try:
+            run_pipeline(cfg, device)
+        except ResidentRefused as exc:
+            return _fail(str(exc))
     return 0
 
 

@@ -8,9 +8,11 @@ import torch
 
 jax = pytest.importorskip("jax")
 
-from sift4g_tpu.align.batch import BatchAligner as JaxAligner, PackedTargets
+from sift4g_tpu.align.batch import BatchAligner as JaxAligner
+from sift4g_tpu.align.batch import PackedTargets as JaxPacked
 from sift4g_tpu.core.scorers import create_scorer
 from sift4g_tpu_torch.align.batch import BatchAligner
+from sift4g_tpu_torch.align.host import PackedTargets
 
 # the suite runs several worker processes at once: torch's OpenMP threads
 # on top of them oversubscribe the cores and slow every test many times
@@ -31,11 +33,17 @@ def _items(rng, n_queries=3, per_query=(0, 5, 23), tmax=300):
     return items
 
 
-def _packed(targets):
+def _packed(targets, cls=PackedTargets):
     lens = np.array([t.shape[0] for t in targets], dtype=np.int32)
     starts = np.concatenate(([0], np.cumsum(lens)[:-1])).astype(np.int64)
     codes = np.concatenate(targets) if targets else np.zeros(0, np.uint8)
-    return PackedTargets(codes, starts, lens)
+    return cls(codes, starts, lens)
+
+
+def _as_jax(items):
+    """The same items with the JAX package's PackedTargets."""
+    return [(q, JaxPacked(t.codes, t.starts, t.lens) if isinstance(t, PackedTargets) else t)
+            for q, t in items]
 
 
 def _jax(mode, backend, **kw):
@@ -58,8 +66,8 @@ def test_scores_match_jax_backends(mode, packed):
         items = [(q, _packed(t)) for q, t in items]
     al = BatchAligner(SCORER, mode=mode, backend="torch", b_cap=8)
     got = al.scores_many(items)
-    _assert_all_equal(got, _jax(mode, "numpy").scores_many(items))
-    _assert_all_equal(got, _jax(mode, "xla", batch=8).scores_many(items))
+    _assert_all_equal(got, _jax(mode, "numpy").scores_many(_as_jax(items)))
+    _assert_all_equal(got, _jax(mode, "xla", batch=8).scores_many(_as_jax(items)))
     assert al.launches > 0
 
 
@@ -72,12 +80,12 @@ def test_screened_keep_lists_match_jax(packed):
     items = _items(rng, n_queries=4, per_query=(40, 9, 30, 0))
     if packed:
         items = [(q, _packed(t)) for q, t in items]
-    ref = _jax("SW", "numpy").scores_many(items)
+    ref = _jax("SW", "numpy").scores_many(_as_jax(items))
     smins = [max(1, int(np.median(r))) if len(r) else 1 for r in ref]
     k = 6
     got = BatchAligner(SCORER, backend="torch", b_cap=16).scores_many_async(
         items, screen=(smins, k))()
-    jx = _jax("SW", "xla", b_cap=16).scores_many_async(items, screen=(smins, k))()
+    jx = _jax("SW", "xla", b_cap=16).scores_many_async(_as_jax(items), screen=(smins, k))()
 
     def keep(scores, smin):
         idx = np.flatnonzero(scores >= smin)
@@ -188,4 +196,4 @@ def test_python_pack_without_native_library(monkeypatch):
     items = [(q, _packed(t)) if i % 2 else (q, t) for i, (q, t) in enumerate(items)]
     monkeypatch.setattr(tbatch, "load_native", lambda: None)
     got = BatchAligner(SCORER, backend="torch", b_cap=8).scores_many(items)
-    _assert_all_equal(got, _jax("SW", "numpy").scores_many(items))
+    _assert_all_equal(got, _jax("SW", "numpy").scores_many(_as_jax(items)))

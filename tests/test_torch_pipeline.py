@@ -26,7 +26,8 @@ def syn(tmp_path_factory):
          "--n-db", "2000", "--n-q", "3", "--subst-per-query", "5", "--seed", "1"],
         check=True, capture_output=True,
     )
-    return {"q": str(d / "queries.fa"), "d": str(d / "db.fa"), "subst": str(d), "root": d}
+    return {"q": str(d / "queries.fa"), "d": str(d / "db.fa"), "subst": str(d), "root": d,
+            "jax": {}}
 
 
 def _out(syn, name):
@@ -39,6 +40,7 @@ def _jax_cli(syn, out, *extra):
     """``python -m sift4g_tpu --platform cpu --backend xla --overlap off``
     in a subprocess on one CPU device."""
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    syn["jax"][extra] = out
     subprocess.run(
         [sys.executable, "-m", "sift4g_tpu", "--platform", "cpu", "--backend", "xla",
          "--overlap", "off", "-q", syn["q"], "-d", syn["d"], "--out", out, *extra],
@@ -67,12 +69,74 @@ def _assert_same_tree(a, b):
 def test_cli_matches_jax_xla(syn, extra):
     extra = tuple(syn["subst"] if a is None else a for a in extra)
     tag = "subst" if extra else "matrix"
-    ref, got = _out(syn, f"xla-{tag}"), _out(syn, f"torch-{tag}")
-    _jax_cli(syn, ref, *extra)
+    ref = _jax_ref(syn, extra, tag)
+    got = _out(syn, f"torch-{tag}")
     _torch_cli(syn, got, *extra)
     _assert_same_tree(ref, got)
     if extra:
         assert os.path.exists(os.path.join(got, "alignments.txt"))
+
+
+def _jax_ref(syn, extra, tag):
+    """The JAX CLI's output directory for ``extra``, run once per module."""
+    if extra not in syn["jax"]:
+        _jax_cli(syn, _out(syn, f"xla-ref-{tag}"), *extra)
+    return syn["jax"][extra]
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [("--subst", None, "--sub-results"), ()],
+    ids=["subst-subresults", "matrix"],
+)
+def test_cli_resident_matches_jax_xla(syn, extra, capsys):
+    """``--backend torch --resident-db on``: the resident path through the
+    plain resident scorer on the CPU, byte-identical to the JAX CLI."""
+    extra = tuple(syn["subst"] if a is None else a for a in extra)
+    tag = "subst" if extra else "matrix"
+    ref = _jax_ref(syn, extra, tag)
+    got = _out(syn, f"torch-resident-{tag}")
+    _torch_cli(syn, got, "--resident-db", "on", *extra)
+    assert "HBM-resident database" in capsys.readouterr().err
+    _assert_same_tree(ref, got)
+
+
+def test_resident_on_without_parse_cache_fails(syn, monkeypatch, capsys):
+    monkeypatch.setenv("SIFT4G_TPU_NO_FASTA_CACHE", "1")
+    out = _out(syn, "resident-nocache")
+    rc = torch_main(["--backend", "torch", "--resident-db", "on", "-q", syn["q"],
+                     "-d", syn["d"], "--out", out])
+    assert rc == -1
+    err = capsys.readouterr().err
+    assert "error: --resident-db on: the database has no parse cache" in err
+
+
+def test_resident_flag_has_no_effect_under_native(syn, capsys):
+    ref, got = _out(syn, "native-res-off"), _out(syn, "native-res-on")
+    args = ("--subst", syn["subst"])
+    _torch_cli(syn, ref, "--resident-db", "off", *args, backend="native")
+    capsys.readouterr()
+    _torch_cli(syn, got, "--resident-db", "on", *args, backend="native")
+    err = capsys.readouterr().err
+    assert "--resident-db has no effect under --backend native" in err
+    assert "HBM-resident" not in err
+    _assert_same_tree(ref, got)
+
+
+def test_resident_auto_keeps_slab_path_on_cpu(syn, capsys):
+    out = _out(syn, "torch-auto")
+    _torch_cli(syn, out, "--subst", syn["subst"])
+    assert "HBM-resident" not in capsys.readouterr().err
+    _assert_same_tree(_out_dir_of(syn, "torch-subst-plain"), out)
+
+
+def _out_dir_of(syn, name):
+    """A plain ``--backend torch --resident-db off`` subst run, made once."""
+    p = syn["root"] / name
+    if not p.exists():
+        p.mkdir()
+        _torch_cli(syn, str(p), "--resident-db", "off", "--subst", syn["subst"])
+    return str(p)
 
 
 @pytest.mark.parametrize("algorithm", ["NW", "HW", "OV"])
