@@ -39,12 +39,34 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    inputs (the packed slabs, uninitialized tails included), exact, and the
    largest of them timed, kernel and plain version, with CUDA events;
 5b. every K3 launch of phase 4b's cold default-flag run held the same
-   way, and the largest timed, with K1 on the same windows as a slab.
+   way, and the largest timed, with K1 on the same windows as a slab;
+3b. (run after phase 3) K1 on the launch shapes the TPU's long-target
+   kernel K2 served: 256 targets of 8,192 residues and 32 Titin-class
+   targets of 35,008, a 360-residue query each, exact against the plain
+   version and timed;
+6. K5, the row-engine probe, against its plain version, exact (the JAX
+   shape B=1024 N=512 at 300 rows, B=65,536 at 64 rows, a ragged N=200
+   with gaps 11/2); then the marginal rate at B=1024 and at the bench
+   launch's B=65,536 with the card's clocks and power;
+7. K6, the int32 probes, against their plain version for 1, 2 and 4
+   pairs in both forms (plain and DPX), exact; then ``bench_ab roofline``,
+   ``roofline2`` and ``roofline4`` (counted: these are K6's path), each
+   rate beside the card's peak int32 rate as a check of it, and the
+   opcodes of each variant's loop from ``cuobjdump -sass``.  The
+   operations bound of every kernel divides by that peak (2 operations
+   per fused add-and-max instruction x 64 instructions per clock per SM x
+   SMs x the maximum SM clock), or by K6's measured rate should that be
+   higher;
+8. the bench twin end to end (``python -m sift4g_tpu_torch.bench`` in a
+   subprocess with JAX and the JAX package unimportable): its record must
+   name the card, be within 10 % of phase 3's K1 rate and have
+   ``0 < roofline_pct <= 105``; its K5 launches are K5's count.
 
-The last line of stdout is ``{"ok": true, "device": {...}}``; the line
-before it the card's name and power limit, and before that one JSON line
-with each kernel's launches, error, times at the main path's largest
-launch and bound.  The script imports neither JAX nor the JAX package.
+Each phase prints its seconds.  The last line of stdout is
+``{"ok": true, "device": {...}}``; the line before it the card's name and
+power limit, and before that one JSON line with each kernel's launches,
+error, times at its path's largest launch and bound.  The script imports
+neither JAX nor the JAX package.
 """
 
 import sys
@@ -78,10 +100,24 @@ K3 = {
     "source": "sift4g_tpu_torch/csrc/sw_grouped_resident.cu",
     "replaces": "sift4g_tpu/align/pallas_sw.py:774",
 }
-# H100 SXM peaks from NVIDIA's datasheet: device memory bandwidth, and
-# the non-tensor 32-bit rate, which int32 add/sub/max cannot exceed
+K5 = {
+    "name": "dp_row_probe",
+    "route": "cuda",
+    "source": "sift4g_tpu_torch/csrc/dp_row_roofline.cu",
+    "replaces": "sift4g_tpu/align/roofline.py:44",
+}
+K6 = {
+    "name": "int32_probe",
+    "route": "cuda",
+    "source": "sift4g_tpu_torch/csrc/int32_roofline.cu",
+    "replaces": "tools/bench_ab.py:95",
+}
+# H100 SXM device memory bandwidth from NVIDIA's datasheet
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12
+# the int32 add/sub/max rate the operations bounds divide by: the card's
+# peak (phase 1), raised in phase 7 to K6's measured rate should that be
+# higher
+INT32 = {"ops_per_s": None, "src": ""}
 # int32 add/sub/max of one DP cell in the kernels' recurrence (F 3, G 2,
 # E 3, H 1, and the SW zero floor and running best)
 OPS_PER_CELL = {"SW": 11, "NW": 9, "HW": 9, "OV": 9}
@@ -176,11 +212,17 @@ def phase_build():
 
     t0 = time.perf_counter()
     _build.load()
-    say(f"[1] built {K1['source']} and {K3['source']} with nvcc in "
+    sources = ", ".join(os.path.relpath(p, ROOT) for p in _build._sources())
+    say(f"[1] built {sources} with nvcc in "
         f"{_build.build_seconds:.2f} s (load {time.perf_counter() - t0:.2f} s)")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say(f"[1]   ptxas: {line.strip()}")
+    from sift4g_tpu_torch.align import roofline
+
+    rate, how = roofline.int32_peak_rate()
+    INT32.update(ops_per_s=rate, src=f"peak, {how}")
+    say(f"[1] int32 rate of the operations bounds: {INT32['src']}")
     from sift4g_tpu_torch import native
 
     t0 = time.perf_counter()
@@ -305,7 +347,33 @@ def phase_timing(dev, card):
         f"kernel {ms:.3f} ms = {cells / ms / 1e6:.2f} GCUPS; twin {plain_ms:.3f} ms = "
         f"{cells / plain_ms / 1e6:.2f} GCUPS")
     torch.cuda.synchronize()
-    return err
+    return err, cells / ms / 1e6
+
+
+def phase_long_rungs(dev, card):
+    """K1 on the launch shapes of the TPU's long-target kernel K2, which
+    K1 serves in the port: exact against the plain version, and timed."""
+    import torch
+    from sift4g_tpu_torch.align import scan, sw_grouped
+
+    rng = np.random.default_rng(3)
+    m32 = scan.matrix32_from_scorer(SimpleNamespace(matrix=random_matrix(rng)), dev)
+    rows = []
+    for name, B, N in (("long-target", 256, 8192), ("Titin-class", 32, 35008)):
+        args = grouped_inputs(rng, 1, B, N, (360,), dev, zero_len=False)
+        got = sw_grouped.sw_scores_grouped(*args, m32)
+        ref = scan.align_scores_grouped(*args, m32)
+        torch.cuda.synchronize()
+        err = int((got.long() - ref.long()).abs().max())
+        check(err == 0, f"K1 at the {name} shape differs from its plain version by {err}")
+        ms = _time_ms(lambda: sw_grouped.sw_scores_grouped(*args, m32), iters=2, warmup=1)
+        plain_ms = _time_ms(lambda: scan.align_scores_grouped(*args, m32), iters=1, warmup=0)
+        nbytes, ops, true = _work("slab", args, {"mode": "SW"})
+        say(f"[3b] {name} G=1 B={B} N={N} m=360 ({true / 1e9:.3f} G cells), {card}: K1 "
+            f"{ms:.3f} ms = {true / ms / 1e6:.3f} GCUPS; plain {plain_ms:.3f} ms; "
+            f"kernel == plain (max |diff| 0)")
+        rows.append(dict(name=name, B=B, N=N, ms=ms, plain_ms=plain_ms, work=(nbytes, ops)))
+    return rows
 
 
 @contextlib.contextmanager
@@ -516,10 +584,18 @@ def phase_resident_path(main, tmp):
     return c_cold["resident_launches"], recorded
 
 
-def _bound(kind, args, kw):
-    """(bound_ms, bound_by, true cells) of one launch from its inputs:
-    each input byte read once and the output written once, against the
-    int32 operations of the true cells."""
+def _bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of ``nbytes`` at the memory rate
+    and ``ops`` at the int32 rate in force."""
+    ms_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    ms_ops = ops / INT32["ops_per_s"] * 1e3
+    return max(ms_bytes, ms_ops), ("bytes" if ms_bytes >= ms_ops else "operations")
+
+
+def _work(kind, args, kw):
+    """(bytes, int32 operations, true cells) of one K1/K3 launch from its
+    inputs: each input byte read once and the output written once, and
+    the true cells' int32 add/sub/max."""
     q_all, q_lens = args[0], args[2]
     if kind == "slab":
         targets, lens = args[3], args[4]
@@ -531,9 +607,7 @@ def _bound(kind, args, kw):
         row_bytes = int(lens.long().sum()) + 8 * starts.numel()
     true = int((q_lens.long() * lens.long().sum(dim=1)).sum())
     nbytes = row_bytes + 4 * (q_all.numel() + 2 * G + 2 * G * B) + 4 * 32 * 32
-    ms_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    ms_ops = true * OPS_PER_CELL[kw["mode"]] / INT32_OPS_PER_S * 1e3
-    return max(ms_bytes, ms_ops), ("bytes" if ms_bytes >= ms_ops else "operations"), true
+    return nbytes, true * OPS_PER_CELL[kw["mode"]], true
 
 
 def phase_main_launches(recorded, card, kind, tag):
@@ -567,10 +641,12 @@ def phase_main_launches(recorded, card, kind, tag):
     padded, true, args, kw, (G, B, N) = largest
     ms = _time_ms(lambda: kernel(*args, **kw), iters=5, warmup=1)
     plain_ms = _time_ms(lambda: plain(*args, **kw), iters=1, warmup=0)
-    bound_ms, bound_by, _ = _bound(kind, args, kw)
+    work = _work(kind, args, kw)[:2]
+    bound_ms, bound_by = _bound(*work)
     say(f"[{tag}] largest main-path launch G={G} B={B} N={N}, {card}: kernel {ms:.3f} ms = "
         f"{padded / ms / 1e6:.2f} GCUPS padded, {true / ms / 1e6:.2f} true; plain "
-        f"{plain_ms:.3f} ms; bound {bound_ms:.3f} ms ({bound_by}); design bound "
+        f"{plain_ms:.3f} ms; bound {bound_ms:.3f} ms ({bound_by}, at the peak int32 "
+        f"rate; recomputed at the end after phase 7's check); design bound "
         f"(17 B/cell at 3.35 TB/s) {true * 17 / HBM_BYTES_PER_S * 1e3:.3f} ms")
     if kind == "resident":
         # K1 on the same windows as a slab, timed between K3's turns
@@ -583,32 +659,190 @@ def phase_main_launches(recorded, card, kind, tag):
             f"windows as a slab {k1_ms:.3f} ms ({true / k1_ms / 1e6:.2f} true GCUPS)")
         del slab
     torch.cuda.empty_cache()
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, work=work)
+
+
+def phase_dp_row(dev, card):
+    """K5 against its plain version, exact, then its marginal rates."""
+    import torch
+    from sift4g_tpu_torch.align import roofline
+
+    max_err = 0
+    for B, N, M, go, ge, salt in ((1024, 512, 300, 10, 1, 3), (65536, 512, 64, 10, 1, -7),
+                                  (1024, 200, 150, 11, 2, 5)):
+        got = roofline.dp_row_probe(M, salt, B=B, N=N, go=go, ge=ge, device=dev)
+        ref = roofline.dp_row_probe_plain(M, salt, B=B, N=N, go=go, ge=ge, device=dev)
+        torch.cuda.synchronize()
+        err = int((got.long() - ref.long()).abs().max())
+        max_err = max(max_err, err)
+        check(got.shape == (B,) and got.dtype == torch.int32, f"K5 B={B} N={N}: shape/dtype")
+        check(err == 0, f"K5 B={B} N={N} M={M}: differs from its plain version by {err}")
+        check(bool((got == got[0]).all()), f"K5 B={B} N={N}: rows differ")
+        say(f"[6] K5 B={B} N={N} M={M} gaps {go}/{ge} salt {salt}: kernel == plain "
+            f"(max |diff| 0, best cell {int(got[0])})")
+    # the bench's ceiling launch: the bench launch's thread count and rows
+    B, N, M = 65536, 512, 360
+    ms = _time_ms(lambda: roofline.dp_row_probe(M, 11, B=B, N=N, device=dev), iters=3, warmup=1)
+    plain_ms = _time_ms(lambda: roofline.dp_row_probe_plain(M, 11, B=B, N=N, device=dev),
+                        iters=1, warmup=0)
+    cells = B * N * M
+    say(f"[6] K5 B={B} N={N} M={M}, {card}: kernel {ms:.3f} ms = {cells / ms / 1e6:.2f} GCUPS; "
+        f"plain {plain_ms:.3f} ms")
+    for rows, kw in ((1024, {}), (B, dict(lo=120, hi=M))):
+        r = roofline.dp_row_roofline(B=rows, N=N, device=dev, **kw)
+        say(f"[6] dp_row_roofline B={rows} N={N} rows {kw.get('lo', 1000)} -> "
+            f"{kw.get('hi', 4000)}: {r['gcups']:.3f} GCUPS marginal, t_lo {r['t_lo_s']:.6f} s, "
+            f"t_hi {r['t_hi_s']:.6f} s; card {roofline.gpu_state()}")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, work=(4 * B, cells * 11))
+
+
+def phase_int32(dev, card):
+    """K6 against its plain version, exact; then ``bench_ab roofline*``,
+    the path K6 runs on, with its launches counted."""
+    import torch
+    from sift4g_tpu_torch.align import roofline
+    from sift4g_tpu_torch.tools import bench_ab
+
+    B, N, M = 1024, 512, 1000
+    max_err = 0
+    for pairs in roofline.INT32_PAIRS:
+        ref = roofline.int32_probe_plain(M, 3, B=B, N=N, pairs=pairs, device=dev)
+        check(int(ref.unique().numel()) > 1, "K6 parity case: every row equal")
+        for dpx in (False, True):
+            got = roofline.int32_probe(M, 3, B=B, N=N, pairs=pairs, dpx=dpx, device=dev)
+            torch.cuda.synchronize()
+            err = int((got.long() - ref.long()).abs().max())
+            max_err = max(max_err, err)
+            check(err == 0, f"K6 pairs={pairs} dpx={dpx}: differs from plain by {err}")
+            say(f"[7] K6 B={B} N={N} M={M} pairs={pairs} {'dpx' if dpx else 'plain'}: "
+                f"kernel == plain (max |diff| 0)")
+    M = 25_000
+    ms = _time_ms(lambda: roofline.int32_probe(M, 5, B=B, N=N, device=dev), iters=3, warmup=1)
+    plain_ms = _time_ms(lambda: roofline.int32_probe_plain(M, 5, B=B, N=N, device=dev),
+                        iters=1, warmup=0)
+    say(f"[7] K6 pairs=1 plain B={B} N={N} M={M}, {card}: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms")
+
+    roofline.reset_counters()
+    records = [rec for pairs in roofline.INT32_PAIRS
+               for rec in bench_ab.run_roofline(pairs=pairs, device=dev)]
+    launches = roofline.int32_launches
+    check(launches > 0, "bench_ab roofline launched K6 no time")
+    peak = INT32["ops_per_s"]
+    for rec in records:
+        ips = rec["instr_per_s"]
+        say(f"[7] bench_ab {rec['metric']}: {rec['tops']:.3f} T int32 ops/s "
+            f"({100 * rec['tops'] * 1e12 / peak:.1f} % of the peak {peak / 1e12:.3f}), "
+            f"{'not measured' if ips is None else f'{ips / 1e12:.3f} T instructions/s'}, "
+            f"t_lo {rec['t_lo_s']:.6f} s, t_hi {rec['t_hi_s']:.6f} s; {rec['card']}, "
+            f"{rec['power_limit']}; clocks {rec['clocks']}")
+        check(rec["t_hi_s"] - rec["t_lo_s"] > 1e-3, f"{rec['metric']}: t_hi - t_lo under 1 ms")
+    sass = roofline.int32_probe_sass()
+    if sass is None:
+        say("[7] SASS: cuobjdump not found; loop opcodes not read")
+    for (pairs, dpx), (ops, rounds, per) in sorted((sass or {}).items()):
+        say(f"[7] SASS loop of K6 pairs={pairs} {'dpx' if dpx else 'plain'}: {dict(ops)}; "
+            f"{rounds:g} rounds per pass, {per:.4f} instructions per element and round")
+    best = max(records, key=lambda r: r["tops"])
+    say(f"[7] check of the peak: K6's best, {best['metric']}, {best['tops']:.3f} T ops/s, is "
+        f"{100 * best['tops'] * 1e12 / peak:.1f} % of the peak {peak / 1e12:.3f} T ops/s")
+    if best["tops"] * 1e12 > peak:
+        INT32.update(ops_per_s=best["tops"] * 1e12,
+                     src=f"K6 measured, {best['metric']} at {best['tops']:.3f} T ops/s, above "
+                         f"the peak {peak / 1e12:.3f} T")
+    say(f"[7] int32 rate of the operations bounds: {INT32['ops_per_s'] / 1e12:.3f} T ops/s, "
+        f"{INT32['src']}")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, work=(4 * B, 4 * B * N * M),
+                launches=launches)
+
+
+_BENCH_RUN = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["sift4g_tpu"] = None
+sys.argv = ["sift4g_tpu_torch.bench"]
+runpy.run_module("sift4g_tpu_torch.bench", run_name="__main__", alter_sys=True)
+"""
+
+
+def phase_bench(card, k1_gcups):
+    """The bench twin end to end, in a process of its own."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _BENCH_RUN], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=ROOT),
+    )
+    check(proc.returncode == 0,
+          f"python -m sift4g_tpu_torch.bench exited {proc.returncode}: {proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    say(f"[8] python -m sift4g_tpu_torch.bench ({time.perf_counter() - t0:.1f} s): "
+        f"record {json.dumps(rec)}")
+    name, power_limit = (v.strip() for v in card.split(","))
+    check(rec["card"] == name and rec["power_limit"] == power_limit,
+          f"the bench record names {rec['card']!r}, {rec['power_limit']!r}, not {card!r}")
+    check(rec["metric"] == "sw_score_gcups[cuda-grouped]", f"metric {rec['metric']!r}")
+    check(abs(rec["value"] - k1_gcups) <= 0.10 * k1_gcups,
+          f"bench value {rec['value']:.3f} GCUPS is not within 10 % of phase 3's "
+          f"{k1_gcups:.3f}")
+    check(0 < rec["roofline_pct"] <= 105, f"roofline_pct {rec['roofline_pct']:.2f}")
+    check(rec["launches"]["sw_grouped"] > 0 and rec["launches"]["dp_row_probe"] > 0,
+          f"the bench launched K1/K5 no time: {rec['launches']}")
+    say(f"[8] bench: {rec['value']:.3f} GCUPS (phase 3: {k1_gcups:.3f}), marginal "
+        f"{rec.get('marginal_gcups')}; K5 ceiling {rec['roofline_gcups']:.3f} GCUPS at B=65536 "
+        f"({rec['roofline_gcups_b1024']:.3f} at B=1024); roofline_pct "
+        f"{rec['roofline_pct']:.2f}, marginal {rec.get('marginal_roofline_pct')}; CPU scalar "
+        f"{rec['baseline_gcups']:.3f}, SIMD {rec['cpu_simd_gcups']:.3f} GCUPS; {card}")
+    return rec
+
+
+def run_phase(tag, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say(f"[{tag}] phase took {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
-    card = phase_build()
+    card = run_phase("1", phase_build)
     import torch
 
     dev = torch.device("cuda", 0)
-    err_k1 = phase_parity(dev)
-    err_k3 = phase_resident_parity(dev)
-    err_k1 = max(err_k1, phase_timing(dev, card))
+    err_k1 = run_phase("2", phase_parity, dev)
+    err_k3 = run_phase("2b", phase_resident_parity, dev)
+    err_t, k1_gcups = run_phase("3", phase_timing, dev, card)
+    err_k1 = max(err_k1, err_t)
+    long_rungs = run_phase("3b", phase_long_rungs, dev, card)
     tmp = tempfile.mkdtemp(prefix="sift4g-smoke-")
     try:
-        main_path = phase_main_path(tmp)
-        k3_launches, k3_recorded = phase_resident_path(main_path, tmp)
+        main_path = run_phase("4", phase_main_path, tmp)
+        k3_launches, k3_recorded = run_phase("4b", phase_resident_path, main_path, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    k1 = phase_main_launches(main_path.recorded, card, "slab", "5")
-    k3 = phase_main_launches(k3_recorded, card, "resident", "5b")
+    k1 = run_phase("5", phase_main_launches, main_path.recorded, card, "slab", "5")
+    k3 = run_phase("5b", phase_main_launches, k3_recorded, card, "resident", "5b")
+    above = sum(1 for args, _, _ in main_path.recorded if args[3].shape[2] > 4096)
+    say(f"[5] K1 launches above the 4096-wide rung in phase 4's run: {above} of "
+        f"{main_path.launches}")
+    k5 = run_phase("6", phase_dp_row, dev, card)
+    k6 = run_phase("7", phase_int32, dev, card)
+    bench = run_phase("8", phase_bench, card, k1_gcups)
     k1["max_abs_err"] = max(k1["max_abs_err"], err_k1)
     k3["max_abs_err"] = max(k3["max_abs_err"], err_k3)
-    say(json.dumps({"kernels": [
-        dict(K1, launches=main_path.launches, **k1),
-        dict(K3, launches=k3_launches, **k3),
-    ]}))
+    k5["launches"] = bench["launches"]["dp_row_probe"]
+    for row in long_rungs:
+        bound_ms, bound_by = _bound(*row["work"])
+        say(f"[3b] {row['name']} B={row['B']} N={row['N']}, {card}: K1 {row['ms']:.3f} ms, "
+            f"plain {row['plain_ms']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+    kernels = []
+    for meta, k, launches in ((K1, k1, main_path.launches), (K3, k3, k3_launches),
+                              (K5, k5, k5["launches"]), (K6, k6, k6["launches"])):
+        bound_ms, bound_by = _bound(*k["work"])
+        kernels.append(dict(meta, launches=launches, max_abs_err=k["max_abs_err"], ms=k["ms"],
+                            plain_ms=k["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=None))
+    say(f"[bound] int32 rate {INT32['ops_per_s'] / 1e12:.3f} T ops/s ({INT32['src']}); "
+        f"memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    say(json.dumps({"kernels": kernels}))
     say(card_line())
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -95,6 +95,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32, i32, i32,            # mode, go, ge
         vp, vp, vp,               # scratch, out, stream
     ]
+    lib.sift4g_dp_row_probe.restype = i32
+    lib.sift4g_dp_row_probe.argtypes = [
+        i32, i32, i32, i32,       # B, N, M, salt
+        i32, i32,                 # go, ge
+        vp, vp, vp,               # scratch, out, stream
+    ]
+    lib.sift4g_int32_probe.restype = i32
+    lib.sift4g_int32_probe.argtypes = [
+        i32, i32, i32, i32,       # B, N, M, salt
+        i32, i32,                 # pairs, dpx
+        vp, vp,                   # out, stream
+    ]
     return lib
 
 

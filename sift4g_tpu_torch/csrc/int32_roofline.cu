@@ -1,0 +1,111 @@
+// K6: the int32 add/max throughput probes.
+//
+// Replaces tools/bench_ab.py:95 (run_roofline: kern at :112, pallas_call
+// at :125) and tools/bench_ab.py:154 (run_roofline_ilp: kern at :163,
+// pallas_call at :183).  For each pair p < PAIRS, element (b, n) starts
+// at a = n + salt + p, b = b - salt - p and runs M rounds of
+// (a, b) = (max(a + 1, b), max(b - 1, a)); the result is
+// out[b] = max over n and p of max(a, b), (B,) int32.  PAIRS = 1 is
+// run_roofline exactly; the plain PyTorch version is in
+// sift4g_tpu_torch/align/roofline.py.
+//
+// The update is written either plainly, max(x + c, y), or with the DPX
+// intrinsic __viaddmax_s32(x, c, y).  One kernel, templated on PAIRS (1, 2
+// or 4) and on the form.  nvcc 12.8 fuses the plain form into the DPX
+// instruction VIADDMNMX by itself on sm_90a: both forms compile to the
+// same loop (cuobjdump -sass), and nothing here forces them apart.
+//
+// What bounds it on the card: the integer pipes alone.  The state lives
+// in registers (no memory traffic in the loop), so the rate is the rate
+// at which the SMs dispatch the update instructions: 64 int32 add/min/max
+// instructions per clock per SM as documented for compute capability 9.0,
+// each VIADDMNMX an add and a max, so at most 2 x 64 counted operations
+// per clock per SM.  Design: one
+// block per row b, one thread per column (strided when N exceeds the
+// block), PAIRS independent chains per thread, the round loop unrolled 4
+// times so the loop counter costs little, and at 512 threads per block 4
+// blocks resident per SM, enough warps to hide the two-instruction
+// dependency of each chain.  The block's maximum is reduced with
+// __reduce_max_sync and shared memory.
+
+#include <cuda_runtime.h>
+#include <climits>
+#include <stdint.h>
+
+namespace sift4g {
+namespace {
+
+constexpr int kMaxThreads = 512;
+
+template <bool DPX>
+__device__ __forceinline__ int add_max(int x, int c, int y) {
+  if constexpr (DPX) {
+    return __viaddmax_s32(x, c, y);
+  } else {
+    return max(x + c, y);
+  }
+}
+
+template <int PAIRS, bool DPX>
+__global__ void __launch_bounds__(kMaxThreads) int32_probe_kernel(
+    int N, int M, int salt, int32_t* __restrict__ out) {
+  const int row = blockIdx.x;
+  int acc = INT_MIN;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    int a[PAIRS], b[PAIRS];
+#pragma unroll
+    for (int p = 0; p < PAIRS; ++p) {
+      a[p] = n + salt + p;
+      b[p] = row - salt - p;
+    }
+#pragma unroll 4
+    for (int r = 0; r < M; ++r) {
+#pragma unroll
+      for (int p = 0; p < PAIRS; ++p) {
+        const int na = add_max<DPX>(a[p], 1, b[p]);
+        b[p] = add_max<DPX>(b[p], -1, a[p]);
+        a[p] = na;
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < PAIRS; ++p) acc = max(acc, max(a[p], b[p]));
+  }
+
+  __shared__ int warp_max[kMaxThreads / 32];
+  acc = __reduce_max_sync(0xffffffffu, acc);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_max[warp] = acc;
+  __syncthreads();
+  if (warp == 0) {
+    int v = lane < (int)(blockDim.x >> 5) ? warp_max[lane] : INT_MIN;
+    v = __reduce_max_sync(0xffffffffu, v);
+    if (lane == 0) out[row] = v;
+  }
+}
+
+}  // namespace
+}  // namespace sift4g
+
+// C entry for ctypes.  Launches on `stream`; neither synchronises nor
+// allocates; returns cudaGetLastError().
+extern "C" int sift4g_int32_probe(int B, int N, int M, int salt, int pairs,
+                                  int dpx, int32_t* out, void* stream) {
+  if (B <= 0 || N <= 0 || M < 0) return static_cast<int>(cudaErrorInvalidValue);
+  // a multiple of the warp, so that every lane joins the reductions
+  const int threads = N >= sift4g::kMaxThreads ? sift4g::kMaxThreads : (N + 31) / 32 * 32;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SIFT4G_LAUNCH(P, D) \
+  sift4g::int32_probe_kernel<P, D><<<B, threads, 0, s>>>(N, M, salt, out)
+  switch (pairs * 2 + (dpx ? 1 : 0)) {
+    case 2: SIFT4G_LAUNCH(1, false); break;
+    case 3: SIFT4G_LAUNCH(1, true); break;
+    case 4: SIFT4G_LAUNCH(2, false); break;
+    case 5: SIFT4G_LAUNCH(2, true); break;
+    case 8: SIFT4G_LAUNCH(4, false); break;
+    case 9: SIFT4G_LAUNCH(4, true); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SIFT4G_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}

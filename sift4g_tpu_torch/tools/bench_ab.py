@@ -1,0 +1,159 @@
+"""Measurements on the card: the int32 and row-engine probes, K1 launches,
+and the host baseline.
+
+    python -m sift4g_tpu_torch.tools.bench_ab <cmd> [deadline_s]
+
+The twin of ``tools/bench_ab.py``; one subcommand per process, each
+printing one JSON line per measurement:
+
+* ``roofline``, ``roofline2``, ``roofline4``: K6 (``align/roofline.py``)
+  with 1, 2 and 4 independent (a, b) pairs per element, in both forms of
+  the update (written plainly and with the DPX ``__viaddmax_s32``; nvcc
+  compiles both to ``VIADDMNMX`` on sm_90a): the
+  marginal int32 rate at 25,000 and 100,000 rounds (divided by the
+  pairs), 4 operations per element and round, beside the card's peak
+  int32 rate (``roofline.int32_peak_rate``) and the instructions per
+  second read from the loop's SASS;
+* ``dprow``: K5, the row engine's marginal cell rate at the JAX shape;
+* ``native``: the port's threaded native C++ DP at the bench shape on the
+  host (the CPU baseline);
+* ``g64``, ``g128``: K1 at the bench launch with 64 and 128 groups.
+
+``ab``, ``unroll`` and ``unroll4`` are refused: they A/B the TPU kernel's
+``acc="i16"`` and ``unroll`` knobs, which K1 does not have.  Every
+subcommand but ``native`` measures the card: without one it exits 1 with
+``error: no CUDA device ...`` and prints no metric line.
+"""
+
+from __future__ import annotations
+
+import json
+import signal
+import sys
+
+REFUSED = {
+    "ab": 'A/Bs the TPU kernel\'s acc="i16" accumulator',
+    "unroll": "A/Bs the TPU kernel's unroll knob",
+    "unroll4": "A/Bs the TPU kernel's unroll knob",
+}
+
+
+def _deadline(seconds):
+    def _raise(signum, frame):
+        raise TimeoutError(f"exceeded {seconds}s")
+
+    signal.signal(signal.SIGALRM, _raise)
+    signal.alarm(seconds)
+
+
+def _card_fields():
+    from ..align import roofline
+
+    name, power_limit = roofline.nvidia_smi("name,power.limit")
+    return {"card": name, "power_limit": power_limit, "clocks": roofline.gpu_state()}
+
+
+def run_roofline(pairs=1, B=1024, N=512, iters=6, device="cuda"):
+    """K6 in both forms: one record per form."""
+    from ..align import roofline
+
+    dev = roofline.require_cuda(device)
+    peak, how = roofline.int32_peak_rate(dev)
+    records = []
+    for dpx in (False, True):
+        res = roofline.int32_roofline(B=B, N=N, iters=iters, pairs=pairs, dpx=dpx, device=dev)
+        form = "dpx" if dpx else "plain"
+        records.append({
+            "metric": f"int32_tops_marginal[pairs{pairs},{form}]",
+            **res,
+            "peak_tops": peak / 1e12,
+            "peak_src": how,
+            **_card_fields(),
+        })
+    sass = roofline.int32_probe_sass()
+    lo, hi = 25_000 // pairs, 100_000 // pairs
+    for rec, dpx in zip(records, (False, True)):
+        per = sass.get((pairs, dpx), (None, None, None))[2] if sass else None
+        rec["insns_per_element_round"] = per
+        rec["instr_per_s"] = (per * pairs * B * N * (hi - lo) / (rec["t_hi_s"] - rec["t_lo_s"])
+                              if per else None)
+    return records
+
+
+def run_dprow(B=1024, N=512, go=10, ge=1, iters=6, device="cuda"):
+    """K5's marginal cell rate at the JAX shape: the row engine that K1's
+    inner loop runs, without its matrix lookups and target loads."""
+    from ..align.roofline import dp_row_roofline
+
+    out = dp_row_roofline(B=B, N=N, go=go, ge=ge, iters=iters, device=device)
+    return {"metric": "dp_row_engine_gcups_marginal", **out, **_card_fields()}
+
+
+def run_grouped(groups=64, iters=6, device="cuda"):
+    """K1 at the bench launch with ``groups`` groups, by the bench's own
+    protocol (``bench.bench_grouped_cuda``)."""
+    from ..align.roofline import require_cuda
+    from ..bench import bench_grouped_cuda
+
+    res = bench_grouped_cuda(require_cuda(device), groups=groups, iters=iters)
+    return {
+        "metric": f"sw_score_gcups[cuda-grouped,G{groups}]",
+        "gcups": res["gcups"],
+        "all_gcups": res["gcups_iters"],
+        "compile_s": res["build_s"],
+        "gcups_median": res["gcups_median"],
+        "marginal_gcups": res["marginal_gcups"],
+        **_card_fields(),
+    }
+
+
+def run_native(n_targets=8192, n=512, m=360):
+    """Score-only threaded native C++ DP at the bench workload shape on
+    the host: the measured CPU baseline."""
+    from ..bench import bench_native_cpu
+
+    return {"metric": "native_cpu_score_gcups", "gcups": bench_native_cpu(n_targets, n, m)}
+
+
+COMMANDS = {
+    "roofline": lambda: run_roofline(pairs=1),
+    "roofline2": lambda: run_roofline(pairs=2),
+    "roofline4": lambda: run_roofline(pairs=4),
+    "dprow": run_dprow,
+    "native": run_native,
+    "g64": lambda: run_grouped(groups=64),
+    "g128": lambda: run_grouped(groups=128),
+}
+
+
+def main(argv=None) -> int:
+    args = list(sys.argv[1:] if argv is None else argv)
+    if not args:
+        print(f"usage: bench_ab <{'|'.join(COMMANDS)}> [deadline_s]", file=sys.stderr)
+        return 2
+    cmd = args[0]
+    if cmd in REFUSED:
+        print(f"error: bench_ab {cmd} {REFUSED[cmd]}, which the port's K1 does not "
+              f"have (ROADMAP queue 3)", file=sys.stderr)
+        return 2
+    if cmd not in COMMANDS:
+        print(f"error: unknown command {cmd!r}; choose from {', '.join(COMMANDS)}",
+              file=sys.stderr)
+        return 2
+    _deadline(int(args[1]) if len(args) > 1 else 1800)
+    try:
+        result = COMMANDS[cmd]()
+    except RuntimeError as exc:
+        if "no CUDA device" not in str(exc):
+            raise
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    finally:
+        signal.alarm(0)
+    for rec in result if isinstance(result, list) else [result]:
+        print(json.dumps(rec), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,5 @@
-"""The CUDA kernels (K1 on slabs, K3 on the resident database) against
-their plain PyTorch versions, on the card.
+"""The CUDA kernels (K1 on slabs, K3 on the resident database, the probes
+K5 and K6) against their plain PyTorch versions, on the card.
 
 These tests need a CUDA device and skip without one.  They import no JAX,
 so they run on a GPU host that has none:
@@ -123,6 +123,41 @@ def test_resident_kernel_matches_plain_and_slab_kernel(cuda, mode, shape):
     slab = args[3][st[..., None] + torch.arange(N, device=cuda)].view(torch.int8).contiguous()
     k1 = sw_grouped.sw_scores_grouped(*args[:3], slab, args[5], m32, mode=mode)
     assert torch.equal(got, k1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "case",
+    [(1024, 512, 10, 1, 40, 3), (300, 200, 11, 2, 25, -7), (5, 16, 5, 2, 0, 1)],
+    ids=["jax-shape", "ragged", "no-rows"],
+)
+def test_dp_row_probe_matches_plain(cuda, case):
+    from sift4g_tpu_torch.align import roofline
+
+    B, N, go, ge, M, salt = case
+    launches = roofline.dp_row_launches
+    got = roofline.dp_row_probe(M, salt, B=B, N=N, go=go, ge=ge, device=cuda)
+    ref = roofline.dp_row_probe_plain(M, salt, B=B, N=N, go=go, ge=ge, device=cuda)
+    torch.cuda.synchronize()
+    assert roofline.dp_row_launches == launches + 1
+    assert got.dtype == torch.int32 and got.shape == (B,)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dpx", [False, True], ids=["plain", "dpx"])
+@pytest.mark.parametrize("pairs", [1, 2, 4])
+def test_int32_probe_matches_plain(cuda, pairs, dpx):
+    from sift4g_tpu_torch.align import roofline
+
+    launches = roofline.int32_launches
+    for B, N, M, salt in [(1024, 512, 300, 3), (70, 37, 41, -5), (3, 1100, 9, 2)]:
+        got = roofline.int32_probe(M, salt, B=B, N=N, pairs=pairs, dpx=dpx, device=cuda)
+        ref = roofline.int32_probe_plain(M, salt, B=B, N=N, pairs=pairs, device=cuda)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and got.shape == (B,)
+        assert torch.equal(got, ref)
+    assert roofline.int32_launches == launches + 3
 
 
 @pytest.mark.gpu
