@@ -60,7 +60,33 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 8. the bench twin end to end (``python -m sift4g_tpu_torch.bench`` in a
    subprocess with JAX and the JAX package unimportable): its record must
    name the card, be within 10 % of phase 3's K1 rate and have
-   ``0 < roofline_pct <= 105``; its K5 launches are K5's count.
+   ``0 < roofline_pct <= 105``; its K5 launches are K5's count;
+9. (run after phase 4b, on its database) several devices and K4.  The
+   device list is every visible card, or ``[cuda:0, cuda:0]`` (two shards
+   of the one card) on a one-card host.
+   9a. K4 (one query against int32 rows) against its plain version,
+       exact, in all four modes: ragged lengths with zero-length rows and
+       int32 garbage (0..31) past every length, N=200, B=1 with N=37 (the
+       scalar loads), an 8,192-residue query, gaps 11/2;
+   9b. K4 at full width, timed with CUDA events: a 360-residue query
+       against 65,536 targets of 512 residues (K5's bench shape), exact
+       against the plain version, which is timed too;
+   9c. every factory of ``parallel/sharded.py`` on the device list, exact
+       against the unsharded kernel on the same inputs:
+       ``make_sharded_scores``, ``make_sharded_topk_align`` (k=64),
+       ``make_grouped_sharded`` with and without the screen,
+       ``make_grouped_resident_sharded``, ``make_grouped_long_sharded``
+       (G=1, B=256, N=8,192) and ``make_sharded_pipeline_step`` on a
+       (2, 2) grid.  Each factory's launches are counted with the counters
+       set to 0 just before it and read just after (its reference is
+       computed outside that window); no plain version may run on the
+       card; K4's count is the sum over its three factories, the path K4
+       runs on;
+   9d. the main path across the devices at Swiss-Prot scale, on phase 4's
+       50 queries: the CLI with ``--cards`` naming every visible card, at
+       default flags and with ``--resident-db on``, and on a one-card host
+       ``run_pipeline`` on ``[cuda:0, cuda:0]`` both ways; every output
+       byte-identical to phase 4's ``--backend native``.
 
 Each phase prints its seconds.  The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it the card's name and
@@ -105,6 +131,12 @@ K5 = {
     "route": "cuda",
     "source": "sift4g_tpu_torch/csrc/dp_row_roofline.cu",
     "replaces": "sift4g_tpu/align/roofline.py:44",
+}
+K4 = {
+    "name": "sw_single",
+    "route": "cuda",
+    "source": "sift4g_tpu_torch/csrc/sw_single.cu",
+    "replaces": "sift4g_tpu/align/pallas_sw.py:98",
 }
 K6 = {
     "name": "int32_probe",
@@ -378,24 +410,25 @@ def phase_long_rungs(dev, card):
 
 @contextlib.contextmanager
 def recorded_launches(name):
-    """Make the port's aligner keep each launch's device inputs and output
-    of the scorer ``name`` (references only: nothing is copied or
-    synchronised), so that the main path's own launches can be held to the
-    plain version afterwards."""
-    from sift4g_tpu_torch.align import batch
+    """Keep each call's device inputs and output of the scorer wrapper
+    ``name`` (references only: nothing is copied or synchronised), so that
+    the main path's own launches can be held to the plain version
+    afterwards.  The aligner reaches the wrappers through
+    ``parallel/sharded.py``, which looks them up at each call."""
+    from sift4g_tpu_torch.align import sw_grouped
 
-    real, launches = getattr(batch, name), []
+    real, launches = getattr(sw_grouped, name), []
 
     def recorded(*args, **kw):
         out = real(*args, **kw)
         launches.append((args, kw, out))
         return out
 
-    setattr(batch, name, recorded)
+    setattr(sw_grouped, name, recorded)
     try:
         yield launches
     finally:
-        setattr(batch, name, real)
+        setattr(sw_grouped, name, real)
 
 
 def _run_cli(args, metrics=None):
@@ -795,6 +828,304 @@ def phase_bench(card, k1_gcups):
     return rec
 
 
+def single_inputs(rng, B, N, m_pad, qlen, dev, zero_len=True):
+    """K4's inputs on the card: one query (PAD_CODE past ``qlen``) and B
+    int32 rows of width N, random codes 0..31 past every length and, with
+    ``zero_len``, ragged lengths with zero-length rows (else full rows)."""
+    import torch
+
+    targets = rng.integers(0, 32, (B, N)).astype(np.int32)
+    lens = rng.integers(0 if zero_len else N, N + 1, B).astype(np.int32)
+    if zero_len and B > 1:
+        lens[0], lens[-1] = N, 0
+    mask = np.arange(N)[None, :] < lens[:, None]
+    targets[mask] = rng.integers(0, 26, int(mask.sum()))
+    q = np.full(m_pad, 31, dtype=np.int32)
+    q[:qlen] = rng.integers(0, 26, qlen)
+    return [torch.from_numpy(a).to(dev) for a in (q, targets, lens)]
+
+
+def shard_devices():
+    """Every visible card, or two shards of the one card."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i) for i in range(n)] if n > 1 else [torch.device("cuda", 0)] * 2
+
+
+def _sync_all():
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def phase_single_parity(dev):
+    """9a: K4 against its plain version, exact, in all four modes."""
+    import torch
+    from sift4g_tpu_torch.align import scan, sw_grouped
+
+    rng = np.random.default_rng(9)
+    cases = [
+        # name, B, N, m_pad, query length, gaps
+        ("ragged", 300, 512, 384, 361, (10, 1)),
+        ("N=200", 257, 200, 64, 50, (11, 2)),
+        ("B=1 N=37", 1, 37, 32, 9, (10, 1)),
+        ("8192-aa query", 32, 512, 8192, 8192, (11, 2)),
+    ]
+    max_err = 0
+    for name, B, N, m_pad, qlen, (go, ge) in cases:
+        m32 = scan.matrix32_from_scorer(SimpleNamespace(matrix=random_matrix(rng)), dev)
+        q, t, tl = single_inputs(rng, B, N, m_pad, qlen, dev)
+        ql = torch.tensor([qlen], dtype=torch.int32, device=dev)
+        for mode in MODES:
+            t0 = time.perf_counter()
+            kw = dict(mode=mode, gap_open=go, gap_extend=ge)
+            got = sw_grouped.sw_scores_single(q, ql, t, tl, m32, **kw)
+            ref = scan.align_scores(q, qlen, t, tl, m32, **kw)
+            torch.cuda.synchronize()
+            err = int((got.long() - ref.long()).abs().max())
+            max_err = max(max_err, err)
+            check(got.shape == (B,) and got.dtype == torch.int32, f"K4 {name} {mode}: shape/dtype")
+            check(err == 0, f"K4 {name} {mode}: differs from its plain version by up to {err}")
+            say(f"[9a] {name:14s} {mode}: B={B} N={N} qlen={qlen} gaps {go}/{ge}: K4 == plain "
+                f"(max |diff| 0, {time.perf_counter() - t0:.2f} s)")
+    return max_err
+
+
+def phase_single_timing(dev, card):
+    """9b: K4 at full width (K5's bench shape), kernel and plain version
+    timed with CUDA events."""
+    from sift4g_tpu_torch.align import scan, sw_grouped
+
+    B, N, m = 65536, 512, 360
+    rng = np.random.default_rng(44)
+    m32 = scan.matrix32_from_scorer(SimpleNamespace(matrix=random_matrix(rng)), dev)
+    q, t, tl = single_inputs(rng, B, N, 384, m, dev, zero_len=False)
+
+    def kernel():
+        return sw_grouped.sw_scores_single(q, m, t, tl, m32)
+
+    def plain():
+        return scan.align_scores(q, m, t, tl, m32)
+
+    err = int((kernel().long() - plain().long()).abs().max())
+    check(err == 0, f"K4 at B={B} N={N}: differs from its plain version by up to {err}")
+    ms = _time_ms(kernel, iters=10, warmup=2)
+    plain_ms = _time_ms(plain, iters=2, warmup=1)
+    cells = int(tl.long().sum()) * m
+    nbytes = 4 * (t.numel() + tl.numel() + q.numel() + B + 32 * 32)
+    ops = cells * OPS_PER_CELL["SW"]
+    bound_ms, bound_by = _bound(nbytes, ops)
+    say(f"[9b] K4 B={B} N={N} m={m} ({cells / 1e9:.2f} G cells), {card}: kernel {ms:.3f} ms = "
+        f"{cells / ms / 1e6:.2f} GCUPS; plain {plain_ms:.3f} ms; bound {bound_ms:.3f} ms "
+        f"({bound_by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s, {ops / 1e9:.2f} G int32 ops at "
+        f"{INT32['ops_per_s'] / 1e12:.3f} T/s); design bound (20 B/cell at 3.35 TB/s) "
+        f"{cells * 20 / HBM_BYTES_PER_S * 1e3:.3f} ms; kernel == plain (max |diff| 0)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, work=(nbytes, ops))
+
+
+def _top(x, k):
+    """The k best along the last axis, ties by ascending index (the
+    factories' order)."""
+    import torch
+
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def phase_factories(dev, card):
+    """9c: every factory of parallel/sharded.py on the device list against
+    the unsharded kernel; each factory's launches counted alone."""
+    import torch
+    from sift4g_tpu_torch.align import scan, sw_grouped
+    from sift4g_tpu_torch.parallel import sharded
+
+    mesh = shard_devices()
+    n = len(mesh)
+    rng = np.random.default_rng(12)
+    m32 = scan.matrix32_from_scorer(SimpleNamespace(matrix=random_matrix(rng)), dev)
+    counts, max_err = {}, 0
+
+    def run(name, fn, *args):
+        sw_grouped.reset_counters()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        _sync_all()
+        secs = time.perf_counter() - t0
+        c = counts[name] = dict(K4=sw_grouped.single_launches, K1=sw_grouped.kernel_launches,
+                                K3=sw_grouped.resident_launches,
+                                twin=sw_grouped.twin_calls_on_cuda)
+        check(c["twin"] == 0, f"{name}: a plain version ran on the card {c['twin']} times")
+        check(c["K4"] + c["K1"] + c["K3"] >= n, f"{name}: launched fewer kernels than shards")
+        return out, secs
+
+    def same(name, got, want, secs, of=None):
+        """``got`` equal to ``want``; ``of`` names the counted run."""
+        nonlocal max_err
+        got = got.to(want.device)
+        check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+        err = int((got.long() - want.long()).abs().max()) if want.numel() else 0
+        max_err = max(max_err, err)
+        check(err == 0, f"{name}: differs from the unsharded kernel by up to {err}")
+        say(f"[9c] {name} on {n} shards ({', '.join(str(d) for d in mesh)}): == unsharded "
+            f"(max |diff| 0; {secs:.3f} s; launches {counts[of or name]})")
+
+    # one query against B int32 targets: K4 per shard
+    B, N, m = 8192 - 8192 % n, 512, 360
+    q, t, tl = single_inputs(rng, B, N, 384, m, dev)
+    ql = torch.tensor(m, dtype=torch.int32)
+    want = sw_grouped.sw_scores_single(q, m, t, tl, m32)
+    got, secs = run("make_sharded_scores", sharded.make_sharded_scores(mesh), q, ql, t, tl, m32)
+    same("make_sharded_scores", torch.cat([s.to(dev) for s in got]), want, secs)
+    k = 64
+    (scores, top_s, top_i), secs = run(
+        "make_sharded_topk_align", sharded.make_sharded_topk_align(mesh, k=k), q, ql, t, tl, m32)
+    ws, wi = _top(want, k)
+    same("make_sharded_topk_align", torch.cat([s.to(dev) for s in scores]), want, secs)
+    same("make_sharded_topk_align top-k scores", top_s, ws, secs, "make_sharded_topk_align")
+    same("make_sharded_topk_align top-k indices", top_i.long(), wi, secs,
+         "make_sharded_topk_align")
+
+    # grouped launches: K1 per shard on the group axis, with and without
+    # the screen
+    G = 4 * n
+    args = grouped_inputs(rng, G, 1024, 512, (360, 0, 17, 128) * n, dev)
+    want = sw_grouped.sw_scores_grouped(*args, m32)
+    smin = torch.full((G,), 25, dtype=torch.int32, device=dev)
+    for screen_k in (0, 400):
+        name = f"make_grouped_sharded screen_k={screen_k}"
+        extra = (smin,) if screen_k else ()
+        ref = scan.screen_topk_words(want, smin, screen_k) if screen_k else want
+        got, secs = run(name, sharded.make_grouped_sharded(mesh, screen_k=screen_k),
+                        *args, m32, *extra)
+        same(name, torch.cat([s.to(dev) for s in got]), ref, secs)
+
+    # resident launches: K3 per shard, the database on every device
+    q3, o3, ql3, db, st, tl3 = resident_inputs(rng, G, 300, 512, (361, 0, 17, 255) * n, dev)
+    want = sw_grouped.sw_scores_grouped_resident(q3, o3, ql3, db, st, tl3, m32, 512)
+    dbs = sharded.replicate_to_mesh(mesh, db)
+    got, secs = run("make_grouped_resident_sharded",
+                    sharded.make_grouped_resident_sharded(mesh, n_pad=512),
+                    q3, o3, ql3, dbs, st, tl3, m32)
+    same("make_grouped_resident_sharded", torch.cat([s.to(dev) for s in got]), want, secs)
+
+    # long targets: one group, rows on the batch axis (K2's launch shape)
+    B_long = 256 - 256 % n
+    args = grouped_inputs(rng, 1, B_long, 8192, (360,), dev, zero_len=False)
+    want = sw_grouped.sw_scores_grouped(*args, m32)
+    got, secs = run("make_grouped_long_sharded", sharded.make_grouped_long_sharded(mesh),
+                    *args, m32)
+    same("make_grouped_long_sharded", torch.cat([s.to(dev) for s in got], dim=1), want, secs)
+
+    # batched queries on a (2, 2) grid: query blocks x database shards
+    devs = mesh if n >= 4 and n % 2 == 0 else (mesh * 4)[:4]
+    grid = [devs[: len(devs) // 2], devs[len(devs) // 2 :]]
+    Q, B2 = 4, 4096 - 4096 % len(grid[0])
+    queries = torch.full((Q, 384), 31, dtype=torch.int32, device=dev)
+    qlens = torch.tensor([360, 200, 17, 301], dtype=torch.int32, device=dev)
+    for j in range(Q):
+        queries[j, : int(qlens[j])] = torch.from_numpy(rng.integers(0, 26, int(qlens[j])))
+    _, t2, tl2 = single_inputs(rng, B2, 512, 8, 1, dev)
+    want = torch.stack([sw_grouped.sw_scores_single(queries[j], int(qlens[j]), t2, tl2, m32)
+                        for j in range(Q)])
+    ws, wi = _top(want, k)
+    (top_s, top_i), secs = run("make_sharded_pipeline_step",
+                               sharded.make_sharded_pipeline_step(grid, k=k),
+                               queries, qlens, t2, tl2, m32)
+    of = "make_sharded_pipeline_step"
+    same(of + " top-k scores", torch.cat([s.to(dev) for s in top_s]), ws, secs, of)
+    same(of + " top-k indices", torch.cat([s.to(dev) for s in top_i]).long(), wi, secs, of)
+    k4 = sum(c["K4"] for c in counts.values())
+    check(k4 > 0, "the sharded factories launched K4 no time")
+    say(f"[9c] K4 launches on its path (make_sharded_scores, make_sharded_topk_align, "
+        f"make_sharded_pipeline_step): {k4}; K1 {sum(c['K1'] for c in counts.values())}, "
+        f"K3 {sum(c['K3'] for c in counts.values())}; plain versions on the card 0")
+    torch.cuda.empty_cache()
+    return max_err, k4
+
+
+def _counted_pipeline(devices, flags, main, out, tag):
+    """``run_pipeline`` at the CLI's defaults on ``devices``, counted and
+    timed as :func:`_counted_run` counts a CLI run."""
+    from sift4g_tpu_torch.align import sw_grouped
+    from sift4g_tpu_torch.pipeline import PipelineConfig, run_pipeline
+    from sift4g_tpu_torch.utils import PhaseMetrics
+
+    metrics = PhaseMetrics(log=sys.stderr, enabled=True)
+    cfg = PipelineConfig(query_path=main.q, database_path=main.db, subst_path=main.data,
+                         out_path=out, align_backend="cuda", timings=True, overlap="off",
+                         metrics=metrics, log=sys.stderr, **flags)
+    sw_grouped.reset_counters()
+    t0 = time.perf_counter()
+    run_pipeline(cfg, devices)
+    wall = time.perf_counter() - t0
+    counts = {"kernel_launches": sw_grouped.kernel_launches,
+              "resident_launches": sw_grouped.resident_launches,
+              "twin_calls_on_cuda": sw_grouped.twin_calls_on_cuda}
+    align = metrics.phases["align"]
+    say(f"[{tag}] {wall:.2f} s wall, align {align['seconds']:.3f} s, "
+        f"{align['cells'] / align['seconds'] / 1e9:.2f} GCUPS over the align phase, "
+        + ", ".join(f"{k}={v}" for k, v in counts.items()))
+    return counts
+
+
+def phase_sharded_main_path(main, tmp):
+    """9d: the main path across the devices, byte-identical to phase 4's
+    ``--backend native`` outputs."""
+    import torch
+    from sift4g_tpu_torch.align.resident import drop_resident_db
+
+    cards = "".join(str(i) for i in range(torch.cuda.device_count()))
+    runs = [(f"CLI --cards {cards}", ["--cards", cards], None),
+            (f"CLI --cards {cards} --resident-db on", ["--cards", cards, "--resident-db", "on"],
+             None)]
+    if len(cards) == 1:
+        two = shard_devices()
+        runs += [("run_pipeline [cuda:0, cuda:0]", {}, two),
+                 ("run_pipeline [cuda:0, cuda:0] --resident-db on", {"resident_db": "on"}, two)]
+    for i, (tag, flags, devices) in enumerate(runs):
+        out = os.path.join(tmp, f"out-9d-{i}")
+        os.mkdir(out)
+        resident = "on" in (flags if devices is None else flags.values())
+        drop_resident_db()
+        t0 = time.perf_counter()
+        if devices is None:
+            _, _, c, _ = _counted_run(["--backend", "cuda", "-q", main.q, "-d", main.db,
+                                       "--subst", main.data, "--out", out, *flags], "9d")
+        else:
+            c = _counted_pipeline(devices, flags, main, out, "9d")
+        if resident:
+            check(c["resident_launches"] > 0 and c["kernel_launches"] == 0,
+                  f"{tag}: left the resident path")
+        else:
+            check(c["kernel_launches"] > 0 and c["resident_launches"] == 0,
+                  f"{tag}: left the slab path")
+        check(c["twin_calls_on_cuda"] == 0, f"{tag}: a plain version ran on the card")
+        n = _same_tree(out, main.native_out, tag)
+        say(f"[9d] {tag}: {n} files byte-identical to --backend native "
+            f"({time.perf_counter() - t0:.2f} s)")
+    drop_resident_db()
+
+
+def phase_sharded(dev, card, main, tmp):
+    t0 = time.perf_counter()
+    err_a = phase_single_parity(dev)
+    say(f"[9a] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k4 = phase_single_timing(dev, card)
+    say(f"[9b] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    err_c, k4_launches = phase_factories(dev, card)
+    say(f"[9c] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_sharded_main_path(main, tmp)
+    say(f"[9d] took {time.perf_counter() - t0:.1f} s")
+    k4["max_abs_err"] = max(k4["max_abs_err"], err_a, err_c)
+    k4["launches"] = k4_launches
+    return k4
+
+
 def run_phase(tag, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -816,6 +1147,7 @@ def main() -> int:
     try:
         main_path = run_phase("4", phase_main_path, tmp)
         k3_launches, k3_recorded = run_phase("4b", phase_resident_path, main_path, tmp)
+        k4 = run_phase("9", phase_sharded, dev, card, main_path, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     k1 = run_phase("5", phase_main_launches, main_path.recorded, card, "slab", "5")
@@ -835,7 +1167,8 @@ def main() -> int:
             f"plain {row['plain_ms']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
     kernels = []
     for meta, k, launches in ((K1, k1, main_path.launches), (K3, k3, k3_launches),
-                              (K5, k5, k5["launches"]), (K6, k6, k6["launches"])):
+                              (K4, k4, k4["launches"]), (K5, k5, k5["launches"]),
+                              (K6, k6, k6["launches"])):
         bound_ms, bound_by = _bound(*k["work"])
         kernels.append(dict(meta, launches=launches, max_abs_err=k["max_abs_err"], ms=k["ms"],
                             plain_ms=k["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,

@@ -2,7 +2,8 @@
 
 Backends of the port's BatchAligner:
 
-* ``cuda``: the grouped scorer as a hand-written CUDA kernel on one GPU;
+* ``cuda``: the grouped scorer as a hand-written CUDA kernel, on the
+  listed CUDA cards or every visible one (``parallel/sharded.py``);
 * ``torch``: the same grouped launch policy through the plain PyTorch
   twin on the CPU (tests and hosts without a GPU);
 * ``native``: the threaded C++ DP of the port's native host library.
@@ -28,15 +29,19 @@ def best_backend() -> str:
     return "cuda"
 
 
-def resolve_backend(backend: str, card: int = 0):
-    """(backend, torch.device) for a backend name and a local GPU index."""
+def resolve_backend(backend: str, cards=None):
+    """(backend, devices) for a backend name and the reference's card list.
+
+    ``cuda`` (and ``auto``) run on exactly the listed local cards, in
+    order, or on every visible card when ``cards`` is empty or None (the
+    JAX package's default of every local device); an index past the
+    visible cards raises ValueError.  ``torch`` and ``native`` run on the
+    CPU and ignore ``cards``, as the JAX package's native path does."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
-    if backend in ("auto", "cuda"):
-        backend = best_backend()
-    else:
-        return backend, torch.device("cpu")
-    n = torch.cuda.device_count()
-    if not 0 <= card < n:
-        raise ValueError(f"card {card} out of range: {n} CUDA device(s) visible")
-    return backend, torch.device("cuda", card)
+    if backend not in ("auto", "cuda"):
+        return backend, [torch.device("cpu")]
+    backend = best_backend()
+    from ..parallel.sharded import make_mesh
+
+    return backend, make_mesh(cards=cards)

@@ -95,6 +95,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32, i32, i32,            # mode, go, ge
         vp, vp, vp,               # scratch, out, stream
     ]
+    lib.sift4g_sw_single.restype = i32
+    lib.sift4g_sw_single.argtypes = [
+        vp, i32, vp,              # q, qm, qlen
+        vp, vp, vp,               # targets, lens, matrix32
+        i32, i32,                 # B, N
+        i32, i32, i32,            # mode, go, ge
+        vp, vp, vp,               # scratch, out, stream
+    ]
     lib.sift4g_dp_row_probe.restype = i32
     lib.sift4g_dp_row_probe.argtypes = [
         i32, i32, i32, i32,       # B, N, M, salt

@@ -15,6 +15,18 @@ any other launch packs a slab for K1.  Buckets need no segment key: the
 resident tensor is one, and the groups' rows stay ascending in database
 id as the screen's tie order needs.
 
+Over several devices (a list, as ``parallel/sharded.py`` takes a mesh)
+one logical launch is split across them: on the group axis
+(``make_grouped_sharded``, ``make_grouped_resident_sharded``), or, when
+the launch has fewer groups than devices, on the batch axis, every device
+scoring all groups on its share of the rows (``make_grouped_long_sharded``,
+the JAX package's long-target rule; such launches are not screened,
+since a group's rows are spread over devices).  The host packs each
+device's share into its own segment of the launch's one pinned buffer,
+each segment goes to its device in one copy, and the fetch makes one
+device-to-host copy per device.  ``launches`` counts a logical launch
+once, however many devices it spans.
+
 What differs is what the TPU constrained.  A launch costs microseconds
 here, not the tens of milliseconds of the TPU runtime, and the kernel
 keeps its DP state in device memory rather than VMEM, so:
@@ -26,7 +38,9 @@ keeps its DP state in device memory rather than VMEM, so:
   group's scratch would pass the launch budget;
 * a launch holds as many groups of a bucket as the scratch budget allows
   (``G * B`` threads, up to a million: enough to fill 132 SMs), with no
-  padding to fixed grid sizes.
+  padding to fixed grid sizes.  The budget is per device, so a launch
+  over n devices holds up to n times the groups, split unevenly where
+  they do not divide.
 """
 
 from __future__ import annotations
@@ -37,6 +51,11 @@ import numpy as np
 import torch
 
 from ..native import load as load_native
+from ..parallel.sharded import (
+    make_grouped_long_sharded,
+    make_grouped_resident_sharded,
+    make_grouped_sharded,
+)
 from . import resolve_backend
 from .host import (
     PAD_CODE,
@@ -50,52 +69,73 @@ from .scan import (
     SCREEN_ROW_MASK,
     decode_screen_words,
     matrix32_from_scorer,
-    screen_topk_words,
 )
-from .sw_grouped import sw_scores_grouped, sw_scores_grouped_resident
 
 # the screen packs the row index into 12 bits (align/scan.py)
 MAX_BATCH = SCREEN_ROW_MASK + 1
-# kernel scratch per launch, 8 bytes per (group, target, column): 2 GiB
-# on a GPU leaves nearly all of an 80 GB card free and still admits a
-# million threads at the common rungs; the CPU twin's temporaries are
-# about ten times its scratch, hence the smaller CPU budget
+# kernel scratch per launch and device, 8 bytes per (group, target,
+# column): 2 GiB on a GPU leaves nearly all of an 80 GB card free and
+# still admits a million threads at the common rungs; the CPU twin's
+# temporaries are about ten times its scratch, hence the smaller CPU
+# budget
 SCRATCH_BYTES = {"cuda": 2 << 30, "cpu": 128 << 20}
 MAX_GROUPS = 65535    # CUDA grid y-dimension limit
 T_BUCKET = 128        # base of the padded-length rung ladder
 
 
+def _split(n: int, parts: int):
+    """[lo, hi) bounds of ``n`` items cut into ``parts`` contiguous pieces
+    whose sizes differ by at most one."""
+    q, r = divmod(n, parts)
+    bounds, lo = [], 0
+    for p in range(parts):
+        hi = lo + q + (p < r)
+        bounds.append((lo, hi))
+        lo = hi
+    return bounds
+
+
 class BatchAligner:
     """Scores queries against many targets; backend 'cuda' | 'torch' | 'native'
-    ('auto' = 'cuda')."""
+    ('auto' = 'cuda').
+
+    ``devices``: the torch devices to score on (a list, repeats allowed, or
+    one device); None takes them from ``resolve_backend(backend, cards)``:
+    the listed CUDA cards, or every visible one."""
 
     def __init__(
         self,
         scorer,
         mode: str = "SW",
         backend: str = "auto",
-        device=None,
+        devices=None,
         b_cap: int = 0,
         tail_policy: str = "pow2",
         tail_coalesce: bool = True,
         threads: int = 0,
         resident=None,
+        cards=None,
     ):
-        if device is None:
-            backend, device = resolve_backend(backend)
+        if devices is None:
+            backend, devices = resolve_backend(backend, cards)
         elif backend == "auto":
             backend = "cuda"
-        device = torch.device(device)
-        if backend == "cuda" and device.type != "cuda":
-            raise ValueError(f"backend cuda needs a CUDA device, got {device}")
-        if backend == "torch" and device.type != "cpu":
-            raise ValueError(f"backend torch runs the twin on the CPU, got {device}")
+        if not isinstance(devices, (list, tuple)):
+            devices = [devices]
+        devices = [torch.device(d) for d in devices]
+        if not devices:
+            raise ValueError("no device to score on")
+        kinds = {d.type for d in devices}
+        if backend == "cuda" and kinds != {"cuda"}:
+            raise ValueError(f"backend cuda needs CUDA devices, got {devices}")
+        if backend == "torch" and kinds != {"cpu"}:
+            raise ValueError(f"backend torch runs the twin on the CPU, got {devices}")
         if tail_policy not in ("full", "pow2"):
             raise ValueError(f"tail_policy must be 'full' or 'pow2', got {tail_policy!r}")
         self.scorer = scorer
         self.mode = mode
         self.backend = backend
-        self.device = device
+        self.devices = devices
         # optional batch-width cap: tests use it to force many groups
         self.b_cap = b_cap
         # "pow2" shrinks the one remainder group per (query, rung) to the
@@ -107,11 +147,12 @@ class BatchAligner:
         # scored exactly at any rung >= its length)
         self.tail_coalesce = tail_coalesce
         self.threads = threads
-        self.scratch_bytes = SCRATCH_BYTES[device.type]
+        # per device: a launch over n devices may hold n times the groups
+        self.scratch_bytes = SCRATCH_BYTES[devices[0].type]
         self.launches = 0
         # device-resident database (align/resident.ResidentDB) or None
         self.resident = resident
-        self._matrix32 = None
+        self._matrix32 = {}    # device -> (32, 32) int32 matrix there
 
     def _b_for(self, n_pad: int) -> int:
         """Batch width of a full group at rung ``n_pad``."""
@@ -217,8 +258,9 @@ class BatchAligner:
     def _scores_grouped(self, items, screen):
         out = [np.zeros(len(t), dtype=np.int64) for _, t in items]
         q_lens = [int(q.shape[0]) for q, _ in items]
-        if self._matrix32 is None:
-            self._matrix32 = matrix32_from_scorer(self.scorer, self.device)
+        for d in self.devices:
+            if d not in self._matrix32:
+                self._matrix32[d] = matrix32_from_scorer(self.scorer, d)
 
         # screen gate: every item needs an integer threshold >= 1 (so
         # padding rows never survive) and the largest possible score must
@@ -236,29 +278,40 @@ class BatchAligner:
                 scr_k, smins = 0, None
 
         native_lib = load_native()
-        devs = []
+        launches = []
+        n_dev = len(self.devices)
         for (n_pad, B), groups in sorted(self._buckets(items).items()):
-            g_cap = max(1, min(MAX_GROUPS, self.scratch_bytes // (8 * B * n_pad)))
+            g_cap = n_dev * max(1, min(MAX_GROUPS, self.scratch_bytes // (8 * B * n_pad)))
             for gpos in range(0, len(groups), g_cap):
                 part = groups[gpos : gpos + g_cap]
-                devs.append(self._launch(items, part, n_pad, B, scr_k, smins, native_lib))
+                launches.append(self._launch(items, part, n_pad, B, scr_k, smins, native_lib))
 
         def fetch() -> List[np.ndarray]:
-            if not devs:
+            if not launches:
                 return out
-            flat = torch.cat([d[0].reshape(-1) for d in devs]).cpu().numpy()
-            pos = 0
-            for res, b, groups, k_eff, _host in devs:
-                w = k_eff if k_eff else b
-                for gi, (item_idx, chunk_idx) in enumerate(groups):
-                    seg = flat[pos + gi * w : pos + (gi + 1) * w]
-                    if k_eff:
-                        rows, sc = decode_screen_words(seg, b)
-                        out[item_idx][chunk_idx[rows]] = sc
-                    else:
-                        out[item_idx][chunk_idx] = seg[: len(chunk_idx)]
-                pos += len(groups) * w
-            devs.clear()   # the copies are done: release the host buffers
+            # one device-to-host copy per device: its results in launch order
+            per_dev = {}
+            for shards, _, _ in launches:
+                for sh in shards:
+                    per_dev.setdefault(sh.device, []).append(sh.result.reshape(-1))
+            flat = {d: torch.cat(parts).cpu().numpy() for d, parts in per_dev.items()}
+            pos = dict.fromkeys(flat, 0)
+            for shards, part, k_eff in launches:
+                for sh in shards:
+                    n_g, n_b = sh.g1 - sh.g0, sh.b1 - sh.b0
+                    w = k_eff if k_eff else n_b
+                    p = pos[sh.device]
+                    seg = flat[sh.device][p : p + n_g * w].reshape(n_g, w)
+                    pos[sh.device] = p + n_g * w
+                    for lg in range(n_g):
+                        item_idx, chunk_idx = part[sh.g0 + lg]
+                        rows = chunk_idx[sh.b0 : sh.b1]
+                        if k_eff:
+                            r, sc = decode_screen_words(seg[lg], n_b)
+                            out[item_idx][rows[r]] = sc
+                        else:
+                            out[item_idx][rows] = seg[lg, : len(rows)]
+            launches.clear()   # the copies are done: release the host buffers
             return out
 
         return fetch
@@ -273,14 +326,28 @@ class BatchAligner:
             for ii, _ in part
         )
 
+    def _plan(self, G: int, B: int):
+        """(device, g0, g1, b0, b1) of each device's share of a (G, B)
+        launch: the group axis split over the devices, or, with fewer
+        groups than devices, the batch axis (every device all G groups)."""
+        n_dev = len(self.devices)
+        if G >= n_dev:
+            return [(d, g0, g1, 0, B) for d, (g0, g1) in zip(self.devices, _split(G, n_dev))]
+        n = min(n_dev, B)
+        return [(d, 0, G, b0, b1) for d, (b0, b1) in zip(self.devices, _split(B, n))]
+
     def _launch(self, items, part, n_pad, B, scr_k, smins, native_lib):
-        """Pack one launch's groups into host buffers, queue the copies,
-        the kernel and the screen; returns (result, B, part, k, host
-        buffers).  The host buffers must live until the fetch: the copies
+        """Pack one launch's groups into host buffers, one segment per
+        device of its split, queue each segment's copy to its device, the
+        kernels and the screens; returns (shards, part, k).  The host
+        buffers, held by the shards, must live until the fetch: the copies
         from them are asynchronous."""
         G = len(part)
         resident = self._part_resident(items, part)
-        pin = self.device.type == "cuda"
+        plan = self._plan(G, B)
+        batch_split = G < len(self.devices)
+        k_eff = min(B, scr_k) if smins is not None and not batch_split else 0
+        pin = self.devices[0].type == "cuda"
         # distinct queries of this launch, concatenated
         local_off, local_parts, n_q = {}, [], 0
         for item_idx, _ in part:
@@ -288,68 +355,100 @@ class BatchAligner:
                 local_off[item_idx] = n_q
                 local_parts.append(items[item_idx][0])
                 n_q += items[item_idx][0].shape[0]
-        # one int32 host buffer for the small arrays:
-        # [lens (G*B) | q_off (G) | q_len (G) | smin (G) | queries]
-        meta_t = torch.empty(G * B + 3 * G + max(n_q, 1), dtype=torch.int32, pin_memory=pin)
-        meta = meta_t.numpy()
-        tl = meta[: G * B].reshape(G, B)
-        qoff = meta[G * B : G * B + G]
-        qlen = meta[G * B + G : G * B + 2 * G]
-        smin = meta[G * B + 2 * G : G * B + 3 * G]
-        q_local = meta[G * B + 3 * G :]
-        tl[:] = 0
-        q_local[:] = PAD_CODE
-        if local_parts:
-            q_local[:n_q] = np.concatenate(local_parts)
+        queries = np.concatenate(local_parts) if local_parts else None
+        # one int32 host buffer for the small arrays, one segment per
+        # device: [lens (Gd*Bd) | q_off (Gd) | q_len (Gd) | smin (Gd) | queries]
+        dims = [(g1 - g0, b1 - b0) for _, g0, g1, b0, b1 in plan]
+        meta_sizes = [g * b + 3 * g + max(n_q, 1) for g, b in dims]
+        tg_sizes = [g * b * (1 if resident else n_pad) for g, b in dims]
+        meta_t = torch.zeros(sum(meta_sizes), dtype=torch.int32, pin_memory=pin)
         if resident:
-            # (G, B) int64 starts into the resident tensor; padding rows
+            # (Gd, Bd) int64 starts into the resident tensor; padding rows
             # keep start 0 and length 0
-            tg_t = torch.zeros((G, B), dtype=torch.int64, pin_memory=pin)
+            tg_t = torch.zeros(sum(tg_sizes), dtype=torch.int64, pin_memory=pin)
         else:
-            tg_t = torch.empty((G, B, n_pad), dtype=torch.int8, pin_memory=pin)
-        tg = tg_t.numpy()
+            tg_t = torch.empty(sum(tg_sizes), dtype=torch.int8, pin_memory=pin)
+        meta, tg_all = meta_t.numpy(), tg_t.numpy()
         if native_lib is None and not resident:
-            tg.fill(PAD_CODE)
+            tg_all.fill(PAD_CODE)
+        shards, views, mo, to = [], [], 0, 0
+        for (dev, g0, g1, b0, b1), (n_g, n_b), msz, tsz in zip(plan, dims, meta_sizes, tg_sizes):
+            shards.append(_Shard(dev, g0, g1, b0, b1, meta_t[mo : mo + msz], tg_t[to : to + tsz]))
+            m, o = meta[mo : mo + msz], n_g * n_b
+            q_local = m[o + 3 * n_g :]
+            q_local[:] = PAD_CODE
+            if queries is not None:
+                q_local[:n_q] = queries
+            shape = (n_g, n_b) if resident else (n_g, n_b, n_pad)
+            views.append((m[:o].reshape(n_g, n_b), m[o : o + n_g], m[o + n_g : o + 2 * n_g],
+                          m[o + 2 * n_g : o + 3 * n_g], tg_all[to : to + tsz].reshape(shape)))
+            mo, to = mo + msz, to + tsz
         for gi, (item_idx, chunk_idx) in enumerate(part):
             targets = items[item_idx][1]
-            qoff[gi] = local_off[item_idx]
-            qlen[gi] = items[item_idx][0].shape[0]
-            if smins is not None:
-                smin[gi] = smins[item_idx]
-            if resident:
-                tg[gi, : len(chunk_idx)] = targets.starts[chunk_idx]
-                tl[gi, : len(chunk_idx)] = targets.lens[chunk_idx]
-            elif native_lib is not None:
-                # bytes past each length stay uninitialized: the kernel
-                # never reads them and the twin masks them (& 31)
-                _pack_native(native_lib, targets, chunk_idx, n_pad, tg[gi], tl[gi])
-            else:
-                for r, i in enumerate(chunk_idx):
-                    t = targets[i]
-                    tg[gi, r, : t.shape[0]] = t
-                    tl[gi, r] = t.shape[0]
+            for sh, (tl, qoff, qlen, smin, tg) in zip(shards, views):
+                if not sh.g0 <= gi < sh.g1:
+                    continue
+                lg = gi - sh.g0
+                qoff[lg] = local_off[item_idx]
+                qlen[lg] = items[item_idx][0].shape[0]
+                if smins is not None:
+                    smin[lg] = smins[item_idx]
+                rows = chunk_idx[sh.b0 : sh.b1]
+                if resident:
+                    tg[lg, : len(rows)] = targets.starts[rows]
+                    tl[lg, : len(rows)] = targets.lens[rows]
+                elif native_lib is not None:
+                    # bytes past each length stay uninitialized: the kernel
+                    # never reads them and the twin masks them (& 31)
+                    if len(rows):
+                        _pack_native(native_lib, targets, rows, n_pad, tg[lg], tl[lg])
+                else:
+                    for r, i in enumerate(rows):
+                        t = targets[i]
+                        tg[lg, r, : t.shape[0]] = t
+                        tl[lg, r] = t.shape[0]
 
-        dev = self.device
-        meta_d = meta_t.to(dev, non_blocking=True)
-        tg_d = tg_t.to(dev, non_blocking=True)
-        o = G * B
-        query_args = (meta_d[o + 3 * G :], meta_d[o : o + G], meta_d[o + G : o + 2 * G])
+        mesh = [sh.device for sh in shards]
+        q_l, go_l, gl_l, sm_l, tg_l, tl_l = [], [], [], [], [], []
+        for sh, (tl, _, _, _, tg) in zip(shards, views):
+            n_g, n_b = tl.shape
+            o = n_g * n_b
+            meta_d = sh.meta.to(sh.device, non_blocking=True)
+            tg_l.append(sh.targets.to(sh.device, non_blocking=True).view(tg.shape))
+            tl_l.append(meta_d[:o].view(n_g, n_b))
+            go_l.append(meta_d[o : o + n_g])
+            gl_l.append(meta_d[o + n_g : o + 2 * n_g])
+            sm_l.append(meta_d[o + 2 * n_g : o + 3 * n_g])
+            q_l.append(meta_d[o + 3 * n_g :])
+        m32 = [self._matrix32[d] for d in mesh]
         gaps = dict(mode=self.mode, gap_open=self.scorer.gap_open,
                     gap_extend=self.scorer.gap_extend)
+        screen = (sm_l,) if k_eff else ()
         if resident:
-            scores = sw_scores_grouped_resident(
-                *query_args, self.resident.dev, tg_d, meta_d[:o].view(G, B),
-                self._matrix32, n_pad, **gaps,
-            )
+            fn = make_grouped_resident_sharded(mesh, n_pad=n_pad, screen_k=k_eff, **gaps)
+            dbs = [self.resident.on(d) for d in mesh]
+            results = fn(q_l, go_l, gl_l, dbs, tg_l, tl_l, m32, *screen)
+        elif batch_split:
+            results = make_grouped_long_sharded(mesh, **gaps)(q_l, go_l, gl_l, tg_l, tl_l, m32)
         else:
-            scores = sw_scores_grouped(
-                *query_args, tg_d, meta_d[:o].view(G, B), self._matrix32, **gaps,
-            )
+            fn = make_grouped_sharded(mesh, screen_k=k_eff, **gaps)
+            results = fn(q_l, go_l, gl_l, tg_l, tl_l, m32, *screen)
+        for sh, res in zip(shards, results):
+            sh.result = res
         self.launches += 1
-        k_eff = min(B, scr_k) if smins is not None else 0
-        if k_eff:
-            scores = screen_topk_words(scores, meta_d[o + 2 * G : o + 3 * G], k_eff)
-        return scores, B, part, k_eff, (meta_t, tg_t)
+        return shards, part, k_eff
+
+
+class _Shard:
+    """One device's share of a launch: groups [g0, g1) x rows [b0, b1),
+    its segments of the launch's host buffers (kept alive until the
+    fetch) and its result on the device."""
+
+    __slots__ = ("device", "g0", "g1", "b0", "b1", "meta", "targets", "result")
+
+    def __init__(self, device, g0, g1, b0, b1, meta, targets):
+        self.device, self.g0, self.g1, self.b0, self.b1 = device, g0, g1, b0, b1
+        self.meta, self.targets, self.result = meta, targets, None
 
 
 def _pack_native(lib, targets, chunk_idx, n_pad, tg_rows, tl_row) -> None:

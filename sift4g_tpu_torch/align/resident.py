@@ -1,11 +1,15 @@
 """The database resident in device memory, for the resident scorer (K3).
 
 The codes are repacked so every sequence starts on a ``SLOT``-byte
-boundary and uploaded once as one ``uint8`` tensor; grouped launches then
-ship (G, B) int64 starts and int32 lengths instead of (G, B, N) target
-slabs (``align/batch.py``, ``align/sw_grouped.py``).  The upload is kept
-in a one-entry cache keyed by the database (``get_resident_db``), so a
-second run on the same database in one process reuses it.
+boundary and uploaded as one ``uint8`` tensor to every device the aligner
+runs on (once per distinct device: the JAX package replicates it across
+its mesh, and the reference gives every card the whole filtered database,
+database_alignment.cpp:80-81); grouped launches then ship (G, B) int64
+starts and int32 lengths instead of (G, B, N) target slabs
+(``align/batch.py``, ``align/sw_grouped.py``).  The uploads are kept in a
+one-entry cache keyed by the database and the devices
+(``get_resident_db``), so a second run on the same database in one
+process reuses them.
 
 ``host_slotted`` stays in host memory: :meth:`ResidentDB.packed_targets`
 builds ``PackedTargets`` over it, which the traceback and every other
@@ -25,7 +29,8 @@ Re-derived for Hopper from ``sift4g_tpu/align/batch.py:73-271``:
 * the tail pad is the largest rung any sequence of the database buckets
   into, so a row's ``n_pad``-byte window (the plain version gathers it
   whole) stays inside the tensor past the last sequence;
-* no mesh: one card (replication across cards is ROADMAP item 11).
+* the mesh is the aligner's device list: one copy per distinct device,
+  and the cache key holds the devices where the JAX key holds the mesh.
 """
 
 from __future__ import annotations
@@ -42,8 +47,17 @@ from .host import PackedTargets, _length_rung
 SLOT = 16
 
 
+def distinct_devices(devices) -> list:
+    """A device or a list of devices as a list of distinct torch.devices,
+    in order of first appearance."""
+    if isinstance(devices, (list, tuple)):
+        return list(dict.fromkeys(torch.device(d) for d in devices))
+    return [torch.device(devices)]
+
+
 class ResidentDB:
-    """Slot-packed database codes on ``device`` (one upload)."""
+    """Slot-packed database codes on ``devices`` (one upload to each
+    distinct device; a single device may be given as it is)."""
 
     @staticmethod
     def slotted_size(offsets: np.ndarray) -> int:
@@ -57,7 +71,7 @@ class ResidentDB:
         max_len = int(np.diff(offsets).max()) if offsets.shape[0] > 1 else 0
         return _length_rung(max_len, T_BUCKET)
 
-    def __init__(self, host_codes: np.ndarray, offsets: np.ndarray, device):
+    def __init__(self, host_codes: np.ndarray, offsets: np.ndarray, devices):
         t0 = time.perf_counter()
         n_seq = offsets.shape[0] - 1
         lens = np.diff(offsets).astype(np.int64)
@@ -89,15 +103,25 @@ class ResidentDB:
         self.host_slotted = buf
         self.slot_off = slot_off      # int64 byte start of each sequence
         self.nbytes = total
-        self.device = torch.device(device)
+        self.devices = distinct_devices(devices)
         self.pack_seconds = time.perf_counter() - t0
         t0 = time.perf_counter()
         # on the CPU the tensor shares the host buffer; on a card it is
-        # the one upload of the run
-        self.dev = torch.from_numpy(buf).to(self.device)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        # the run's one upload to that card
+        host = torch.from_numpy(buf)
+        self.copies = {d: host.to(d, non_blocking=True) for d in self.devices}
+        for d in self.devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
         self.upload_seconds = time.perf_counter() - t0
+        self.dev = self.copies[self.devices[0]]
+
+    def on(self, device) -> torch.Tensor:
+        """The resident tensor on ``device``."""
+        try:
+            return self.copies[torch.device(device)]
+        except KeyError:
+            raise ValueError(f"the resident database is not on {device}") from None
 
     def packed_targets(self, ids: np.ndarray, lens: np.ndarray) -> PackedTargets:
         """(codes, starts, lens) over the SLOTTED host buffer for record
@@ -109,8 +133,8 @@ class ResidentDB:
 _RESIDENT_CACHE: dict = {}
 
 
-def _resident_key(host_codes: np.ndarray, offsets: np.ndarray, device):
-    # backing file + record span, as in the JAX package; the device takes
+def _resident_key(host_codes: np.ndarray, offsets: np.ndarray, devices):
+    # backing file + record span, as in the JAX package; the devices take
     # the place of its mesh (an upload to one device is not another's)
     return (getattr(host_codes, "filename", None)
             or getattr(getattr(host_codes, "base", None), "filename", None)
@@ -119,13 +143,13 @@ def _resident_key(host_codes: np.ndarray, offsets: np.ndarray, device):
             int(offsets.shape[0]),
             int(offsets[0]) if offsets.shape[0] else 0,
             int(offsets[-1]) if offsets.shape[0] else 0,
-            str(torch.device(device)))
+            tuple(str(d) for d in distinct_devices(devices)))
 
 
-def resident_db_cached(host_codes: np.ndarray, offsets: np.ndarray, device) -> bool:
-    """True when the live ResidentDB already holds this database (its
-    upload cost is sunk)."""
-    return _RESIDENT_CACHE.get("key") == _resident_key(host_codes, offsets, device)
+def resident_db_cached(host_codes: np.ndarray, offsets: np.ndarray, devices) -> bool:
+    """True when the live ResidentDB already holds this database on these
+    devices (its upload cost is sunk)."""
+    return _RESIDENT_CACHE.get("key") == _resident_key(host_codes, offsets, devices)
 
 
 def drop_resident_db() -> bool:
@@ -137,13 +161,13 @@ def drop_resident_db() -> bool:
     return had
 
 
-def get_resident_db(host_codes: np.ndarray, offsets: np.ndarray, device) -> ResidentDB:
+def get_resident_db(host_codes: np.ndarray, offsets: np.ndarray, devices) -> ResidentDB:
     """One live ResidentDB at a time, keyed by (backing file, record span,
-    device), so runs on the same database reuse the upload."""
-    key = _resident_key(host_codes, offsets, device)
+    devices), so runs on the same database reuse the uploads."""
+    key = _resident_key(host_codes, offsets, devices)
     if _RESIDENT_CACHE.get("key") != key:
         _RESIDENT_CACHE.clear()
-        db = ResidentDB(host_codes, offsets, device)  # key set only on
+        db = ResidentDB(host_codes, offsets, devices)  # key set only on
         # success: a failed build must not poison the cache
         _RESIDENT_CACHE["key"] = key
         _RESIDENT_CACHE["db"] = db

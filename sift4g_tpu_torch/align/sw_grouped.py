@@ -1,19 +1,21 @@
-"""Grouped affine-gap scorers: the wrappers around the CUDA kernels.
+"""Affine-gap scorers: the wrappers around the CUDA kernels.
 
 ``sw_scores_grouped`` (K1) takes the layout of
-``sift4g_tpu/align/pallas_sw.py:sw_scores_pallas_grouped`` and
+``sift4g_tpu/align/pallas_sw.py:sw_scores_pallas_grouped``,
 ``sw_scores_grouped_resident`` (K3) that of
-``sw_scores_pallas_grouped_resident``, with int64 starts.  Both dispatch
-on the device of their tensors: CPU tensors go to the plain PyTorch
-versions (``align/scan.py``), CUDA tensors to the kernels in
-``csrc/sw_grouped.cu`` and ``csrc/sw_grouped_resident.cu``, built on
-first use.  A CUDA call launches the kernel or raises; there is no
-fallback to the plain version.
+``sw_scores_pallas_grouped_resident``, with int64 starts, and
+``sw_scores_single`` (K4) that of ``sw_scores_pallas``.  All dispatch on
+the device of their tensors: CPU tensors go to the plain PyTorch versions
+(``align/scan.py``), CUDA tensors to the kernels in
+``csrc/sw_grouped.cu``, ``csrc/sw_grouped_resident.cu`` and
+``csrc/sw_single.cu``, built on first use.  A CUDA call launches the
+kernel or raises; there is no fallback to the plain version.
 
 Counters (plain integers a run reads to show which path it took):
 ``kernel_launches`` counts K1 launches made here, ``resident_launches``
-K3 launches, and ``twin_calls_on_cuda`` calls of the plain versions on
-CUDA tensors (only a comparison against a kernel makes those).
+K3 launches, ``single_launches`` K4 launches, and ``twin_calls_on_cuda``
+calls of the plain versions on CUDA tensors (only a comparison against a
+kernel makes those).
 """
 
 from __future__ import annotations
@@ -26,13 +28,15 @@ MODE_IDS = {"SW": 0, "NW": 1, "HW": 2, "OV": 3}
 
 kernel_launches = 0
 resident_launches = 0
+single_launches = 0
 twin_calls_on_cuda = 0
 
 
 def reset_counters() -> None:
-    global kernel_launches, resident_launches, twin_calls_on_cuda
+    global kernel_launches, resident_launches, single_launches, twin_calls_on_cuda
     kernel_launches = 0
     resident_launches = 0
+    single_launches = 0
     twin_calls_on_cuda = 0
 
 
@@ -172,4 +176,56 @@ def sw_scores_grouped_resident(
         raise RuntimeError(f"sw_grouped_resident kernel launch failed: CUDA error {rc}")
     global resident_launches
     resident_launches += 1
+    return out
+
+
+def sw_scores_single(
+    query_codes: torch.Tensor,   # (m_pad,) int32, PAD_CODE past the query
+    query_len,                   # int, or a 1-element int32 tensor
+    targets: torch.Tensor,       # (B, N) int32 codes, any N
+    target_lens: torch.Tensor,   # (B,) int32, each <= N
+    matrix32: torch.Tensor,      # (32, 32) int32
+    *,
+    mode: str = "SW",
+    gap_open: int = 10,
+    gap_extend: int = 1,
+) -> torch.Tensor:
+    """Scores (B,) int32 of the query ``query_codes[:query_len]`` against
+    each ``targets[b, :target_lens[b]]``.  A tensor ``query_len`` is read
+    on the card, so a caller holding it there never waits for the host."""
+    if mode not in MODE_IDS:
+        raise ValueError(f"unknown alignment mode {mode!r}")
+    dev = targets.device
+    if dev.type == "cpu":
+        return scan.align_scores(
+            query_codes, query_len, targets, target_lens, matrix32,
+            mode=mode, gap_open=gap_open, gap_extend=gap_extend,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"sw_scores_single runs on cpu or cuda, not {dev}")
+    if not isinstance(query_len, torch.Tensor):
+        query_len = torch.full((1,), int(query_len), dtype=torch.int32, device=dev)
+    query_len = query_len.reshape(1)
+    B, N = targets.shape
+    _check("query_codes", query_codes, torch.int32, (query_codes.numel(),), dev)
+    _check("query_len", query_len, torch.int32, (1,), dev)
+    _check("targets", targets, torch.int32, (B, N), dev)
+    _check("target_lens", target_lens, torch.int32, (B,), dev)
+    _check("matrix32", matrix32, torch.int32, (32, 32), dev)
+
+    lib = _build.load()
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    scratch = torch.empty((N, B, 2), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sift4g_sw_single(
+            query_codes.data_ptr(), query_codes.shape[0], query_len.data_ptr(),
+            targets.data_ptr(), target_lens.data_ptr(), matrix32.data_ptr(),
+            B, N, MODE_IDS[mode], int(gap_open), int(gap_extend),
+            scratch.data_ptr(), out.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"sw_single kernel launch failed: CUDA error {rc}")
+    global single_launches
+    single_launches += 1
     return out

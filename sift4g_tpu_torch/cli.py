@@ -1,19 +1,24 @@
 """Command-line interface of the PyTorch port.
 
 The flag surface and validation of ``sift4g_tpu/cli.py`` (the reference's
-getopt surface, main.cpp:21-42 and :163-186), on one CUDA device.  The
-scorer backend picks the device: ``cuda`` (the default, also ``auto``)
-runs the grouped CUDA kernel on ``cuda:<card>``, ``torch`` runs its plain
-PyTorch twin on the CPU and ``native`` the threaded C++ DP.  A host
-without a GPU is refused under ``cuda``; nothing falls back to the CPU.
+getopt surface, main.cpp:21-42 and :163-186).  The scorer backend picks
+the devices: ``cuda`` (the default, also ``auto``) runs the grouped CUDA
+kernel on the cards of ``--cards`` (a digit string, as the reference's
+getCudaCards reads it, main.cpp:254-262) or, without it, on every visible
+card, each launch split across them; ``torch`` runs its plain PyTorch
+twin on the CPU and ``native`` the threaded C++ DP, both ignoring
+``--cards``.  A host without a GPU is refused under ``cuda``; nothing
+falls back to the CPU.  A card listed twice is refused: the JAX CLI
+fails on it with a traceback from ``jax.device_put`` (its mesh needs
+distinct devices).
 
 ``--resident-db`` works as in the JAX package, with the rule of
 ``pipeline._resident_refusal``; ``on`` that cannot hold the database
 fails with the reason instead of quietly keeping the slab path.
 
 What the port does not carry yet is refused with the ROADMAP item that
-will port it: the serve daemon, multi-host runs, device prediction, the
-overlapped pipeline and more than one card.
+will port it: the serve daemon, multi-host runs, device prediction and
+the overlapped pipeline.
 """
 
 from __future__ import annotations
@@ -70,9 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="host threads for search, traceback, selection and "
                    "prediction (default: 8)")
     p.add_argument("--cards", default="",
-                   help="the CUDA card used for alignment, as a digit string "
-                   "like the reference's (e.g. '1' = cuda:1; default cuda:0). "
-                   "One card only in this version")
+                   help="CUDA cards used for alignment, as a digit string like "
+                   "the reference's (e.g. '02' = cuda:0 and cuda:2); default: "
+                   "every visible card. Ignored by --backend torch and native")
     p.add_argument("--backend", default="auto", choices=list(BACKENDS),
                    help="alignment scoring backend (default: auto = cuda, the "
                    "grouped CUDA kernel; torch = its PyTorch twin on the CPU; "
@@ -164,9 +169,9 @@ def main(argv=None, metrics=None) -> int:
     if args.threads <= 0:
         return _fail("invalid thread number")
     if args.cards and not args.cards.isdigit():
-        return _fail(f"invalid cards list '{args.cards}' (digits only, e.g. '0')")
-    if len(args.cards) > 1:
-        return _not_ported("more than one card", 11)
+        return _fail(f"invalid cards list '{args.cards}' (digits only, e.g. '02')")
+    if len(set(args.cards)) < len(args.cards):
+        return _fail(f"invalid cards list '{args.cards}' (a card is listed more than once)")
     if args.out and not os.path.isdir(args.out):
         return _fail(f"invalid out directory path '{args.out}'")
     if args.resume and args.sub_results:
@@ -179,7 +184,9 @@ def main(argv=None, metrics=None) -> int:
     except ValueError as exc:
         return _fail(str(exc))
     try:
-        backend, device = resolve_backend(args.backend, int(args.cards or 0))
+        backend, devices = resolve_backend(
+            args.backend, tuple(int(c) for c in args.cards) or None
+        )
     except (RuntimeError, ValueError) as exc:
         return _fail(str(exc))
 
@@ -210,9 +217,10 @@ def main(argv=None, metrics=None) -> int:
             overlap="off",
             resident_db=args.resident_db,
             metrics=metrics,
+            cards=tuple(int(c) for c in args.cards) or None,
         )
         try:
-            run_pipeline(cfg, device)
+            run_pipeline(cfg, devices)
         except ResidentRefused as exc:
             return _fail(str(exc))
     return 0

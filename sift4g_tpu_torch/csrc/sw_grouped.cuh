@@ -1,13 +1,17 @@
 // Grouped affine-gap alignment scores (SW / NW / HW / OV) for Hopper: the
-// kernel body shared by K1 (sw_grouped.cu, target slabs) and K3
-// (sw_grouped_resident.cu, the device-resident database).  The two differ
-// only in where a row's bytes come from (the Rows policy below), so their
-// arithmetic cannot drift apart.
+// kernel body shared by K1 (sw_grouped.cu, target slabs), K3
+// (sw_grouped_resident.cu, the device-resident database) and K4
+// (sw_single.cu, one query against int32 target rows).  They differ only
+// in where a row's codes come from (the Rows policies below, each a loader
+// of "the next 16 codes of row (g, b)"), so their arithmetic cannot drift
+// apart.
 //
 // Group g scores the query q_all[q_off[g] : q_off[g] + q_len[g]] against
-// its B targets; the result is (G, B) int32, bit-identical to the Pallas
-// kernel sift4g_tpu/align/pallas_sw.py:_sw_grouped_kernel (and to the plain
-// PyTorch version in sift4g_tpu_torch/align/scan.py).
+// its B targets (a policy with grouped == false has one query, at 0, and
+// q_off is not read); the result is (G, B) int32, bit-identical to the
+// Pallas kernels sift4g_tpu/align/pallas_sw.py:_sw_grouped_kernel and
+// _sw_kernel (and to the plain PyTorch version in
+// sift4g_tpu_torch/align/scan.py).
 //
 // Design: one thread per (group, target row).  The query row is the outer
 // loop and the target column the inner one; the horizontal gap E runs
@@ -29,11 +33,11 @@
 // a query profile in shared memory, and the DPX intrinsics __viaddmax_s32
 // and __vimax3_s32 for the max-plus updates.
 //
-// Contract (checked by the Python wrappers): a row's bytes start 16-byte
-// aligned and are read in 16-byte words up to its length rounded up to 16;
-// bytes at j >= len may hold anything and are never read as matrix
-// indices.  Lengths are clamped to [0, N] and query spans to the query
-// buffer, for memory safety only.
+// Contract (checked by the Python wrappers): a row's codes at j >= len may
+// hold anything and are never read as matrix indices (only their low five
+// bits are ever used, as the Pallas kernels' 5-bit select trees do).
+// Lengths are clamped to [0, N] and query spans to the query buffer, for
+// memory safety only.
 
 #pragma once
 
@@ -47,11 +51,26 @@ constexpr int kThreads = 128;
 
 enum Mode { SW = 0, NW = 1, HW = 2, OV = 3 };
 
+// The next 16 codes of a byte row read as one 16-byte word: a row starts
+// 16-byte aligned and is read up to its length rounded up to 16 (K1, K3).
+__device__ __forceinline__ void load16_bytes(const uint4* r, int jc, uint32_t w[4]) {
+  const uint4 v = r[jc >> 4];
+  w[0] = v.x;
+  w[1] = v.y;
+  w[2] = v.z;
+  w[3] = v.w;
+}
+
 // Rows of a (G, B, N) int8 slab: row (g, b) starts at (g * B + b) * N.
 struct SlabRows {
+  using Row = const uint4*;
+  static constexpr bool grouped = true;
   const int8_t* targets;
-  __device__ __forceinline__ const uint4* row(size_t gb, int n, int& len) const {
-    return reinterpret_cast<const uint4*>(targets + gb * n);
+  __device__ __forceinline__ Row row(size_t gb, int n, int& len) const {
+    return reinterpret_cast<Row>(targets + gb * n);
+  }
+  __device__ __forceinline__ void load16(Row r, int jc, int len, uint32_t w[4]) const {
+    load16_bytes(r, jc, w);
   }
 };
 
@@ -60,16 +79,54 @@ struct SlabRows {
 // whose 16-byte words would run past the tensor scores as an empty row
 // (memory safety only; the wrapper refuses such starts).
 struct ResidentRows {
+  using Row = const uint4*;
+  static constexpr bool grouped = true;
   const uint8_t* db;
   const int64_t* starts;
   int64_t db_len;
-  __device__ __forceinline__ const uint4* row(size_t gb, int n, int& len) const {
+  __device__ __forceinline__ Row row(size_t gb, int n, int& len) const {
     const int64_t s = starts[gb];
     if (s < 0 || (s & 15) || s > db_len - (((int64_t)len + 15) & ~int64_t(15))) {
       len = 0;
-      return reinterpret_cast<const uint4*>(db);
+      return reinterpret_cast<Row>(db);
     }
-    return reinterpret_cast<const uint4*>(db + s);
+    return reinterpret_cast<Row>(db + s);
+  }
+  __device__ __forceinline__ void load16(Row r, int jc, int len, uint32_t w[4]) const {
+    load16_bytes(r, jc, w);
+  }
+};
+
+// Rows of a (G, B, N) int32 tensor (K4, with G = 1): row (g, b) starts at
+// (g * B + b) * N codes, with N any width.  Reads stop at the row's
+// length: whole 16-byte int4 words where the rows are 16-byte aligned
+// (vec4: N % 4 == 0 on an aligned base), single int32 loads at a row's
+// tail and everywhere else.  Each code's low byte is packed into the same
+// words K1 reads, so the body takes its low five bits as K1 does.
+struct Int32Rows {
+  using Row = const int32_t*;
+  static constexpr bool grouped = false;
+  const int32_t* targets;
+  bool vec4;
+  __device__ __forceinline__ Row row(size_t gb, int n, int& len) const {
+    return targets + gb * n;
+  }
+  __device__ __forceinline__ void load16(Row r, int jc, int len, uint32_t w[4]) const {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = jc + 4 * q;
+      int4 v = make_int4(0, 0, 0, 0);
+      if (vec4 && j + 4 <= len) {
+        v = *reinterpret_cast<const int4*>(r + j);
+      } else {
+        if (j < len) v.x = r[j];
+        if (j + 1 < len) v.y = r[j + 1];
+        if (j + 2 < len) v.z = r[j + 2];
+        if (j + 3 < len) v.w = r[j + 3];
+      }
+      w[q] = uint32_t(v.x & 255) | (uint32_t(v.y & 255) << 8) |
+             (uint32_t(v.z & 255) << 16) | (uint32_t(v.w & 255) << 24);
+    }
   }
 };
 
@@ -95,8 +152,10 @@ __global__ void __launch_bounds__(kThreads) sw_grouped_kernel(
 
   const size_t gb = (size_t)g * B + b;
   int len = min(max(lens[gb], 0), N);
-  const uint4* t16 = rows.row(gb, N, len);
-  const int off = min(max(q_off[g], 0), qm);
+  const typename Rows::Row row = rows.row(gb, N, len);
+  // a compile-time choice: a null test of q_off here cost K1's SW kernel
+  // 2.3 % of its rate on an H100 (48 registers instead of 53)
+  const int off = Rows::grouped ? min(max(q_off[g], 0), qm) : 0;
   const int qlen = min(max(q_len[g], 0), qm - off);
   const int32_t* q = q_all + off;
   int2* hf = scratch + (size_t)g * N * B + b;  // hf[j * B] = (H, F)
@@ -118,8 +177,8 @@ __global__ void __launch_bounds__(kThreads) sw_grouped_kernel(
     int gprev = kNeg;
     int h = 0;
     for (int jc = 0; jc < len; jc += 16) {
-      const uint4 w = t16[jc >> 4];
-      const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+      uint32_t words[4];
+      rows.load16(row, jc, len, words);
 #pragma unroll
       for (int k = 0; k < 16; ++k) {
         const int j = jc + k;

@@ -14,10 +14,14 @@ host.
 keeps the host predict only: the ``--predict-backend device`` branch
 (``sift/predict_batch.py``, JAX) is not ported yet (ROADMAP item 9).
 
-The device-resident database (``_maybe_resident_db``) follows the JAX
-rule with two changes: the accelerator check is a CUDA device, and the
-memory budget is derived from the card's free memory (``_resident_budget``)
-instead of the fixed 12 GiB of a 16 GB TPU.  ``--resident-db on`` that
+The align phase scores on the aligner's device list: the cards of
+``--cards`` (``PipelineConfig.cards``), or every visible card, as the JAX
+package's mesh does (``parallel/sharded.py``).  The device-resident
+database (``_maybe_resident_db``) follows the JAX rule with two changes:
+the accelerator check is a CUDA device, and the memory budget is derived
+from the cards' free memory (``_resident_budget``, the smallest among
+them) instead of the fixed 12 GiB of a 16 GB TPU; the database is
+replicated on every card.  ``--resident-db on`` that
 cannot hold the database raises with the reason; it never quietly keeps
 the slab path.  The overlapped prefilter/align pipeline is not ported yet
 (ROADMAP item 10): this module always runs the two-phase order.
@@ -174,30 +178,33 @@ def _resident_budget(device: torch.device) -> Optional[int]:
     return int(free) + int(cached) - _RESIDENT_HEADROOM
 
 
-def _resident_refusal(mode_flag: str, device, fs, indices) -> Optional[str]:
+def _resident_refusal(mode_flag: str, devices, fs, indices) -> Optional[str]:
     """Why the align phase keeps the slab path, or None to go resident.
 
     The JAX rule: the parse cache (absolute offsets + mmap codes) and a
-    slotted size inside the device budget; under "auto" also a CUDA device
-    and total candidate bytes above the slotted size (the one-time upload
-    must beat the slab traffic it replaces), unless the same database is
-    already resident (its upload is sunk cost)."""
-    from .align.resident import ResidentDB, resident_db_cached
+    slotted size inside every device's budget; under "auto" also CUDA
+    devices and total candidate bytes above the slotted size (the one-time
+    upload must beat the slab traffic it replaces), unless the same
+    database is already resident there (its upload is sunk cost).
+    ``devices``: a device or a list of them."""
+    from .align.resident import ResidentDB, distinct_devices, resident_db_cached
 
     if not isinstance(fs, CachedFastaStream):
         return ("the database has no parse cache (.s4gc; check "
                 "SIFT4G_TPU_NO_FASTA_CACHE and that the cache directory is writable)")
+    devs = distinct_devices(devices)
     offsets = fs._offsets
     slotted = ResidentDB.slotted_size(offsets)
-    budget = _resident_budget(device)
+    budgets = [b for b in (_resident_budget(d) for d in devs) if b is not None]
+    budget = min(budgets) if budgets else None
     if budget is not None and slotted + ResidentDB.tail_pad(offsets) > budget:
         return (f"the slotted database ({slotted / 1e9:.2f} GB) exceeds the "
                 f"device budget ({max(budget, 0) / 1e9:.2f} GB free beside the "
                 f"launch scratch)")
     if mode_flag == "auto":
-        if device.type != "cuda":
+        if any(d.type != "cuda" for d in devs):
             return "no CUDA device"
-        if not resident_db_cached(fs._codes, offsets, device):
+        if not resident_db_cached(fs._codes, offsets, devs):
             cand_bytes = 0
             for ix in indices:
                 ix = np.asarray(ix, dtype=np.int64)
@@ -215,12 +222,12 @@ def _maybe_resident_db(fs, indices, aligner, mode_flag: str, log):
     :class:`ResidentRefused`; under "auto" it keeps the slab path."""
     from .align.resident import get_resident_db
 
-    reason = _resident_refusal(mode_flag, aligner.device, fs, indices)
+    reason = _resident_refusal(mode_flag, aligner.devices, fs, indices)
     if reason is not None:
         if mode_flag == "on":
             raise ResidentRefused(f"--resident-db on: {reason}")
         return None
-    rdb = get_resident_db(fs._codes, fs._offsets, aligner.device)
+    rdb = get_resident_db(fs._codes, fs._offsets, aligner.devices)
     print(
         f"** Align phase uses the HBM-resident database "
         f"({rdb.nbytes / 1e9:.2f} GB slotted) **",
@@ -239,15 +246,20 @@ def align_database(
     max_alignments: int,
     mode: str = "SW",
     backend: str = "cuda",
-    device: Optional[torch.device] = None,
+    devices=None,
     chunk_bytes: int = ALIGN_CHUNK_BYTES,
     log=sys.stderr,
     metrics: Optional[PhaseMetrics] = None,
     resident_db: str = "auto",
     threads: int = 0,
+    cards: Optional[tuple] = None,
 ) -> List[List[AlignmentRecord]]:
     """Per-query alignment records, best-first (score desc, database
     index asc on ties).
+
+    ``devices``: the torch devices the scorer runs on (a list, or one
+    device); None resolves ``backend`` and ``cards`` (every visible card
+    when ``cards`` is None).
 
     ``resident_db``: "auto" | "on" | "off" — device-resident scoring
     (upload the slot-packed database codes once; launches ship start and
@@ -255,7 +267,7 @@ def align_database(
     for when "auto" takes it; it has no effect under backend native."""
     print("** Aligning queries with candidate sequences **", file=log)
     aligner = BatchAligner(
-        scorer, mode=mode, backend=backend, device=device, threads=threads
+        scorer, mode=mode, backend=backend, devices=devices, threads=threads, cards=cards
     )
     results: List[List[AlignmentRecord]] = [[] for _ in queries]
     remaining = [list(ix) for ix in indices]
@@ -461,11 +473,12 @@ def _sweep_stray_temps(out_path: str) -> None:
             pass
 
 
-def run_pipeline(cfg: PipelineConfig, device: Optional[torch.device] = None) -> List[Chain]:
+def run_pipeline(cfg: PipelineConfig, devices=None) -> List[Chain]:
     """Run the full pipeline; returns the list of processed queries.
 
     ``cfg.align_backend`` is a port backend ('cuda', 'torch', 'native');
-    ``device`` is the torch device the scorer runs on."""
+    ``devices`` are the torch devices the scorer runs on (a list, or one
+    device; None = ``cfg.cards``, or every visible card)."""
     log = cfg.log
     metrics = cfg.metrics or PhaseMetrics(log=log, enabled=cfg.timings)
     queries = read_fasta(cfg.query_path)
@@ -516,12 +529,13 @@ def run_pipeline(cfg: PipelineConfig, device: Optional[torch.device] = None) -> 
             cfg.max_alignments,
             mode=cfg.algorithm,
             backend=cfg.align_backend,
-            device=device,
+            devices=devices,
             chunk_bytes=cfg.align_chunk_bytes,
             log=log,
             metrics=metrics,
             resident_db=cfg.resident_db,
             threads=cfg.threads,
+            cards=cfg.cards,
         )
 
     finish_pipeline(cfg, queries, records, metrics)

@@ -129,7 +129,7 @@ def main(argv=None) -> int:
     from ..utils import PhaseMetrics
 
     try:
-        backend, device = resolve_backend(args.backend)
+        backend, devices = resolve_backend(args.backend)
     except RuntimeError as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 1
@@ -154,7 +154,7 @@ def main(argv=None) -> int:
         cfg.metrics = PhaseMetrics(log=sys.stderr, enabled=True)
         t0 = time.perf_counter()
         try:
-            queries = run_pipeline(cfg, device)
+            queries = run_pipeline(cfg, devices)
         except ResidentRefused as exc:
             print(f"error: {exc}", file=sys.stderr)
             return 1

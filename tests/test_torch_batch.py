@@ -184,7 +184,7 @@ def test_native_backend_matches_numpy():
 
 def test_refuses_backend_device_mismatch():
     with pytest.raises(ValueError, match="CUDA device"):
-        BatchAligner(SCORER, backend="cuda", device=torch.device("cpu"))
+        BatchAligner(SCORER, backend="cuda", devices=torch.device("cpu"))
 
 
 def test_python_pack_without_native_library(monkeypatch):

@@ -38,8 +38,9 @@ def _run_module(*argv):
 
 
 @pytest.mark.parametrize("argv", [("sift4g_tpu_torch.bench",),
-                                  ("sift4g_tpu_torch.tools.bench_ab", "roofline")],
-                         ids=["bench", "bench_ab-roofline"])
+                                  ("sift4g_tpu_torch.tools.bench_ab", "roofline"),
+                                  ("sift4g_tpu_torch.tools.chip_sharded_sanity",)],
+                         ids=["bench", "bench_ab-roofline", "chip_sharded_sanity"])
 def test_card_entry_points_fail_without_a_card(argv):
     proc = _run_module(*argv)
     assert proc.returncode != 0

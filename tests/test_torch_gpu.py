@@ -1,5 +1,6 @@
-"""The CUDA kernels (K1 on slabs, K3 on the resident database, the probes
-K5 and K6) against their plain PyTorch versions, on the card.
+"""The CUDA kernels (K1 on slabs, K3 on the resident database, K4 on
+int32 rows, the probes K5 and K6) against their plain PyTorch versions,
+and the sharded factories on two shards of the card, on the card.
 
 These tests need a CUDA device and skip without one.  They import no JAX,
 so they run on a GPU host that has none:
@@ -168,3 +169,73 @@ def test_resident_kernel_refuses_bad_window(cuda):
         sw_grouped.sw_scores_grouped_resident(*args, m32, 24)
     with pytest.raises(TypeError, match="int64"):
         sw_grouped.sw_scores_grouped_resident(*args[:4], args[4].int(), args[5], m32, 64)
+
+
+def _single_inputs(seed, B, N, m_pad, qlen, dev):
+    """One query and B int32 rows of any width: ragged lengths, empty rows,
+    random codes 0..31 past every length."""
+    rng = np.random.default_rng(seed)
+    targets = rng.integers(0, 32, (B, N)).astype(np.int32)
+    lens = rng.integers(0, N + 1, B).astype(np.int32)
+    lens[0], lens[-1] = N, 0
+    for b in range(B):
+        targets[b, : lens[b]] = rng.integers(0, 26, lens[b])
+    q = np.full(m_pad, 31, dtype=np.int32)
+    q[:qlen] = rng.integers(0, 26, qlen)
+    return [torch.from_numpy(a).to(dev) for a in (q, targets, lens)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize(
+    "shape",
+    [(300, 512, 384, 361), (257, 200, 64, 50), (1, 37, 32, 9), (40, 64, 8192, 8192)],
+    ids=["ragged", "n200", "b1-n37", "8192-aa"],
+)
+def test_single_kernel_matches_plain(cuda, mode, shape):
+    B, N, m_pad, qlen = shape
+    q, t, tl = _single_inputs(5, B, N, m_pad, qlen, cuda)
+    m32 = scan.matrix32_from_scorer(_blosum62(), cuda)
+    launches = sw_grouped.single_launches
+    got = sw_grouped.sw_scores_single(q, qlen, t, tl, m32, mode=mode, gap_open=11, gap_extend=2)
+    ref = scan.align_scores(q, qlen, t, tl, m32, mode=mode, gap_open=11, gap_extend=2)
+    # the query length as a tensor on the card, and a row base that is not
+    # 16-byte aligned (the kernel's scalar loads)
+    ql = torch.tensor([qlen], dtype=torch.int32, device=cuda)
+    t_off = torch.empty(B * N + 1, dtype=torch.int32, device=cuda)[1:].view(B, N)
+    t_off.copy_(t)
+    got2 = sw_grouped.sw_scores_single(q, ql, t_off, tl, m32, mode=mode, gap_open=11,
+                                       gap_extend=2)
+    torch.cuda.synchronize()
+    assert sw_grouped.single_launches == launches + 2
+    assert got.dtype == torch.int32 and got.shape == (B,)
+    assert torch.equal(got, ref) and torch.equal(got2, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("screen_k", [0, 16], ids=["scores", "screened"])
+def test_sharded_factories_on_two_shards_of_the_card(cuda, screen_k):
+    """make_grouped_sharded and make_sharded_scores on [cuda, cuda]: each
+    shard launches its kernel, and the shards equal the unsharded kernel."""
+    from sift4g_tpu_torch.parallel import sharded
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = [dev, dev]
+    m32 = scan.matrix32_from_scorer(_blosum62(), dev)
+    args = _inputs(3, 6, 256, 512, (51, 17, 0, 64, 300, 90), dev)
+    smin = torch.full((6,), 20, dtype=torch.int32, device=dev)
+    want = sw_grouped.sw_scores_grouped(*args, m32)
+    if screen_k:
+        want = scan.screen_topk_words(want, smin, screen_k)
+    sw_grouped.reset_counters()
+    extra = (smin,) if screen_k else ()
+    got = sharded.make_grouped_sharded(mesh, screen_k=screen_k)(*args, m32, *extra)
+    assert sw_grouped.kernel_launches == 2 and sw_grouped.twin_calls_on_cuda == 0
+    assert torch.equal(torch.cat(got), want)
+
+    q, t, tl = _single_inputs(9, 512, 200, 384, 300, dev)
+    want = sw_grouped.sw_scores_single(q, 300, t, tl, m32)
+    sw_grouped.reset_counters()
+    got = sharded.make_sharded_scores(mesh)(q, torch.tensor(300, dtype=torch.int32), t, tl, m32)
+    assert sw_grouped.single_launches == 2 and sw_grouped.twin_calls_on_cuda == 0
+    assert torch.equal(torch.cat(got), want)

@@ -140,7 +140,9 @@ def test_gpu_backend_refused_without_gpu(no_gpu, backend, capsys, tmp_path):
 
 def test_cpu_backends_need_no_gpu(no_gpu):
     for name in ("torch", "native"):
-        assert talign.resolve_backend(name) == (name, torch.device("cpu"))
+        assert talign.resolve_backend(name) == (name, [torch.device("cpu")])
+        # --cards is the GPU's: the CPU backends ignore it
+        assert talign.resolve_backend(name, (0, 1)) == (name, [torch.device("cpu")])
     with pytest.raises(ValueError, match="unknown backend"):
         talign.resolve_backend("pallas")
 
@@ -155,7 +157,7 @@ def test_cpu_backends_need_no_gpu(no_gpu):
         (["--predict-backend", "device"], {}, 9),
         (["--overlap", "on"], {}, 10),
         (["--resident-db", "on"], {}, None),
-        (["--cards", "01"], {}, 11),
+        (["--cards", "01"], {}, None),
     ],
     ids=["serve", "connect", "shutdown", "multihost", "device-predict", "overlap", "resident",
          "two-cards"],
@@ -171,11 +173,20 @@ def test_unported_surface_is_refused(argv, env, item, monkeypatch, capsys, tmp_p
         make_db([str(tmp_path), "--n-db", "300", "--n-q", "2", "--seed", "4"])
         out = tmp_path / "out"
         out.mkdir()
-        rc = torch_main(["-q", str(tmp_path / "queries.fa"), "-d", str(tmp_path / "db.fa"),
-                         "--backend", "torch", "--out", str(out), *argv])
+        files = ["-q", str(tmp_path / "queries.fa"), "-d", str(tmp_path / "db.fa")]
+        rc = torch_main([*files, "--backend", "torch", "--out", str(out), *argv])
         assert rc == 0
-        assert "HBM-resident database" in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert "not ported" not in err
+        if "--resident-db" in argv:
+            assert "HBM-resident database" in err
         assert any(p.endswith(".SIFTprediction") for p in os.listdir(out))
+        if "--cards" in argv:
+            # --backend torch ignores --cards; the default backend (cuda)
+            # on a host without a GPU refuses, with or without --cards
+            monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+            assert torch_main([*files, *argv]) == -1
+            assert capsys.readouterr().err.startswith("error: no CUDA device")
         return
     q, d = tmp_path / "q.fa", tmp_path / "d.fa"
     q.write_text(">q\nMKV\n")
@@ -183,3 +194,19 @@ def test_unported_surface_is_refused(argv, env, item, monkeypatch, capsys, tmp_p
     assert torch_main(["-q", str(q), "-d", str(d), "--backend", "torch", *argv]) == -1
     err = capsys.readouterr().err
     assert f"not ported yet (ROADMAP item {item})" in err and err.startswith("error: ")
+
+
+@pytest.mark.parametrize(
+    "cards, why",
+    [("0,1", "digits only"), ("00", "listed more than once"), ("101", "listed more than once")],
+    ids=["comma", "repeated", "repeated-apart"],
+)
+def test_cli_refuses_malformed_cards(cards, why, capsys, tmp_path):
+    """--cards is a digit string naming each card once (a repeated card
+    fails inside the JAX package's device_put; the port refuses it)."""
+    q, d = tmp_path / "q.fa", tmp_path / "d.fa"
+    q.write_text(">q\nMKV\n")
+    d.write_text(">d\nMKV\n")
+    assert torch_main(["-q", str(q), "-d", str(d), "--backend", "torch", "--cards", cards]) == -1
+    err = capsys.readouterr().err
+    assert err.startswith(f"error: invalid cards list '{cards}'") and why in err

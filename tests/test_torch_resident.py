@@ -240,13 +240,13 @@ def test_batch_aligner_resident_matches_slab_and_jax(mode, resident_items, monke
     calls = {"resident": 0, "slab": 0}
     for name, key in (("sw_scores_grouped_resident", "resident"),
                       ("sw_scores_grouped", "slab")):
-        real = getattr(tbatch, name)
+        real = getattr(sw_grouped, name)
 
         def spy(*a, _real=real, _key=key, **k):
             calls[_key] += 1
             return _real(*a, **k)
 
-        monkeypatch.setattr(tbatch, name, spy)
+        monkeypatch.setattr(sw_grouped, name, spy)
     res = BatchAligner(SCORER, mode=mode, backend="torch", b_cap=16, resident=rdb)
     got = res.scores_many(items)
     assert calls["resident"] == res.launches > 0 and calls["slab"] == 0
@@ -304,7 +304,7 @@ def test_resident_decision_with_injected_device(cache_db, monkeypatch, tmp_path)
     # no parse cache: both modes refuse, and "on" raises with the reason
     with tfasta.PyFastaStream(str(tmp_path / "db.fa")) as py:
         assert "parse cache" in tpipe._resident_refusal("auto", cuda, py, many)
-        al = SimpleNamespace(device=torch.device("cpu"), backend="torch")
+        al = SimpleNamespace(devices=[torch.device("cpu")], backend="torch")
         with pytest.raises(tpipe.ResidentRefused, match="parse cache"):
             tpipe._maybe_resident_db(py, many, al, "on", open(os.devnull, "w"))
 
