@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR`` (DIR: another checkout of the port, such as the parent
+commit unpacked with ``git archive``) also imports DIR's package under a
+name of its own, builds DIR's kernels through DIR's own wrappers and
+times its K1, K3 and K4 beside this checkout's, in turns (parent, this,
+this, parent) on the same inputs, in phases 3, 3b, 5, 5b and 9b.
 
 Phases, in order; the first failure ends the run with a non-zero exit:
 
@@ -9,14 +15,19 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    build of the CUDA kernels from ``sift4g_tpu_torch/csrc`` (one nvcc per
    source, started together);
 2. K1 (target slabs) against its plain PyTorch version on the card,
-   exact, in all four alignment modes: ragged lengths with garbage tails,
-   zero-length rows, a zero-length group, a 4096-wide rung and an
-   8192-residue query; the E-value screen's words must agree too;
+   exact, in all four alignment modes, at the T (threads per target)
+   its geometry rule picks and at every forced T: ragged lengths with
+   garbage tails, zero-length rows, a zero-length group, a 4096-wide rung
+   and an 8192-residue query; then the pass boundaries of the tiled body
+   (query lengths 0, 1, 8192 and T x 16 - 1, T x 16, T x 16 + 1 for every
+   T; target lengths 0, 1, 15, 16, 17 and N; gaps 10/1 and 11/2); the
+   E-value screen's words must agree too;
 2b. K3 (the resident database) against its plain version, exact, in all
-   four modes: ragged lengths, zero-length rows, windows that run into
-   the next sequence and past the last one, a 4096-wide rung and an
-   8192-residue query; K3 also against K1 fed the same windows as a slab,
-   and the screened words of all three;
+   four modes, at its own and at every forced T: ragged lengths,
+   zero-length rows, windows that run into the next sequence and past
+   the last one, a 4096-wide rung, an 8192-residue query and the pass
+   boundaries of phase 2; K3 also against K1 fed the same windows as a
+   slab, and the screened words of all three;
 3. K1 and its plain version timed with CUDA events at the bench launch
    shape (G=64 groups, B=1024 targets of 512 residues, a 360-residue
    query);
@@ -37,13 +48,15 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    phase tables and align GCUPS are printed;
 5. every K1 launch of phase 4's run held to the plain version on its own
    inputs (the packed slabs, uninitialized tails included), exact, and the
-   largest of them timed, kernel and plain version, with CUDA events;
+   largest of them timed, kernel and plain version, with CUDA events,
+   beside its design bound ((16 + 1) / (16 T) bytes per cell);
 5b. every K3 launch of phase 4b's cold default-flag run held the same
    way, and the largest timed, with K1 on the same windows as a slab;
 3b. (run after phase 3) K1 on the launch shapes the TPU's long-target
    kernel K2 served: 256 targets of 8,192 residues and 32 Titin-class
    targets of 35,008, a 360-residue query each, exact against the plain
-   version and timed;
+   version (the first at every forced T) and timed; K1 must be no slower
+   than its plain version there;
 6. K5, the row-engine probe, against its plain version, exact (the JAX
    shape B=1024 N=512 at 300 rows, B=65,536 at 64 rows, a ragged N=200
    with gaps 11/2); then the marginal rate at B=1024 and at the bench
@@ -60,14 +73,18 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 8. the bench twin end to end (``python -m sift4g_tpu_torch.bench`` in a
    subprocess with JAX and the JAX package unimportable): its record must
    name the card, be within 10 % of phase 3's K1 rate and have
-   ``0 < roofline_pct <= 105``; its K5 launches are K5's count;
+   ``0 < roofline_pct <= 105`` (of the card's operations bound for an SW
+   cell); its K5 launches are K5's count;
 9. (run after phase 4b, on its database) several devices and K4.  The
    device list is every visible card, or ``[cuda:0, cuda:0]`` (two shards
    of the one card) on a one-card host.
-   9a. K4 (one query against int32 rows) against its plain version,
-       exact, in all four modes: ragged lengths with zero-length rows and
-       int32 garbage (0..31) past every length, N=200, B=1 with N=37 (the
-       scalar loads), an 8,192-residue query, gaps 11/2;
+   9a. K4 (one query against int32 rows, the serial body) against its
+       plain version, exact, in all four modes: ragged lengths with
+       zero-length rows and int32 garbage (0..31) past every length,
+       N=200, B=1 with N=37 (the scalar loads), an 8,192-residue query,
+       gaps 11/2, and the tiled body's edge lengths (queries of 0, 1, 15,
+       16, 17, 511, 512, 513 and 8,192; targets of 0, 1, 15, 16, 17 and
+       N);
    9b. K4 at full width, timed with CUDA events: a 360-residue query
        against 65,536 targets of 512 residues (K5's bench shape), exact
        against the plain version, which is timed too;
@@ -153,6 +170,19 @@ INT32 = {"ops_per_s": None, "src": ""}
 # int32 add/sub/max of one DP cell in the kernels' recurrence (F 3, G 2,
 # E 3, H 1, and the SW zero floor and running best)
 OPS_PER_CELL = {"SW": 11, "NW": 9, "HW": 9, "OV": 9}
+# the K1/K3/K4 wrappers of --parent DIR (load_parent), or None
+PARENT = {"k": None}
+# device-memory bytes per cell of the designs: K4's serial body reads and
+# writes its 16-byte H/F pair and reads a 4-byte int32 code at every cell;
+# the tiled body (K1, K3) moves 17 bytes per column and pass of T x
+# TILE_ROWS rows
+K4_BYTES_PER_CELL = 20
+
+
+def tiled_bytes_per_cell(T):
+    from sift4g_tpu_torch.align.sw_grouped import TILE_ROWS
+
+    return 17 / (T * TILE_ROWS)
 
 
 def say(msg: str) -> None:
@@ -273,6 +303,68 @@ def _screen_equal(a, b, G, B):
     return torch.equal(scan.screen_topk_words(a, smin, k), scan.screen_topk_words(b, smin, k))
 
 
+def all_T():
+    """The geometry's own T (None) and every forced T."""
+    from sift4g_tpu_torch.align.sw_grouped import GROUP_THREADS
+
+    return (None, *GROUP_THREADS)
+
+
+EDGE = {}
+
+
+def edge_set(dev):
+    """The tiled body's pass boundaries, built once for phases 2 and 2b: a
+    resident database whose rows in every group have lengths 0, 1, 15, 16,
+    17 and N beside random ones (the last sequence, 5 long, among them:
+    its window runs past the data), one group per query length (0, 1,
+    8192, and T x 16 - 1, T x 16, T x 16 + 1 for every T), and K1's slab
+    of the same windows."""
+    import torch
+    from sift4g_tpu_torch.align.resident import ResidentDB
+    from sift4g_tpu_torch.align.sw_grouped import GROUP_THREADS, TILE_ROWS
+
+    if EDGE:
+        return EDGE
+    rng = np.random.default_rng(2)
+    N, B = 512, 32
+    qlens = sorted({0, 1, 8192} | {T * TILE_ROWS + d for T in GROUP_THREADS for d in (-1, 0, 1)})
+    G = len(qlens)
+    lens_seq = rng.integers(0, N + 1, G * B).astype(np.int64)
+    ids = np.arange(G * B).reshape(G, B)
+    lens_seq[ids[:, :6]] = (0, 1, 15, 16, 17, N)
+    lens_seq[-1] = 5
+    offsets = np.concatenate(([0], np.cumsum(lens_seq)))
+    codes = rng.integers(0, 26, int(offsets[-1])).astype(np.uint8)
+    rdb = ResidentDB(codes, offsets, dev)
+    host = query_inputs(rng, qlens) + (rdb.slot_off[ids], lens_seq[ids].astype(np.int32))
+    q, o, ql, st, tl = [torch.from_numpy(a).to(dev) for a in host]
+    slab = rdb.dev[st[..., None] + torch.arange(N, device=dev)].view(torch.int8).contiguous()
+    m32 = {}
+    from sift4g_tpu_torch.align import scan
+
+    for gaps in ((10, 1), (11, 2)):
+        m32[gaps] = scan.matrix32_from_scorer(
+            SimpleNamespace(matrix=random_matrix(rng)), dev)
+    EDGE.update(args=(q, o, ql, rdb.dev, st, tl), slab=slab, N=N, B=B, qlens=qlens, m32=m32,
+                refs={})
+    return EDGE
+
+
+def edge_ref(dev, mode, gaps):
+    """The plain version on the edge set (cached per mode and gaps)."""
+    from sift4g_tpu_torch.align import scan
+
+    e = edge_set(dev)
+    key = (mode, gaps)
+    if key not in e["refs"]:
+        q, o, ql, _, _, tl = e["args"]
+        e["refs"][key] = scan.align_scores_grouped(
+            q, o, ql, e["slab"], tl, e["m32"][gaps], mode=mode, gap_open=gaps[0],
+            gap_extend=gaps[1])
+    return e["refs"][key]
+
+
 def phase_parity(dev):
     import torch
     from sift4g_tpu_torch.align import scan, sw_grouped
@@ -288,19 +380,44 @@ def phase_parity(dev):
     for name, G, B, N, qlens, (go, ge) in cases:
         m32 = scan.matrix32_from_scorer(SimpleNamespace(matrix=random_matrix(rng)), dev)
         args = grouped_inputs(rng, G, B, N, qlens, dev)
+        auto = sw_grouped.launch_geometry(G, B, N, dev)
         for mode in MODES:
             t0 = time.perf_counter()
-            got = sw_grouped.sw_scores_grouped(*args, m32, mode=mode, gap_open=go, gap_extend=ge)
             ref = scan.align_scores_grouped(*args, m32, mode=mode, gap_open=go, gap_extend=ge)
+            for T in all_T():
+                got = sw_grouped.sw_scores_grouped(*args, m32, mode=mode, gap_open=go,
+                                                   gap_extend=ge, threads_per_target=T)
+                torch.cuda.synchronize()
+                err = int((got.long() - ref.long()).abs().max())
+                max_err = max(max_err, err)
+                check(got.shape == (G, B) and got.dtype == torch.int32,
+                      f"{name} {mode} T={T}: shape/dtype")
+                check(err == 0, f"{name} {mode} T={T}: kernel differs from twin by up to {err}")
+                if T is None:
+                    check(_screen_equal(got, ref, G, B), f"{name} {mode}: screened words differ")
             torch.cuda.synchronize()
-            err = int((got.long() - ref.long()).abs().max())
-            max_err = max(max_err, err)
-            check(got.shape == (G, B) and got.dtype == torch.int32, f"{name} {mode}: shape/dtype")
-            check(err == 0, f"{name} {mode}: kernel differs from twin by up to {err}")
-            check(_screen_equal(got, ref, G, B), f"{name} {mode}: screened words differ")
-            torch.cuda.synchronize()
-            say(f"[2] {name:14s} {mode}: G={G} B={B} N={N} qlens={qlens}: kernel == twin "
-                f"(max |diff| 0, {time.perf_counter() - t0:.2f} s)")
+            say(f"[2] {name:14s} {mode}: G={G} B={B} N={N} qlens={qlens}: kernel == twin at "
+                f"its own (T, block) = {auto} and at every forced T (max |diff| 0, "
+                f"{time.perf_counter() - t0:.2f} s)")
+    e = edge_set(dev)
+    q, o, ql, _, _, tl = e["args"]
+    for gaps in ((10, 1), (11, 2)):
+        for mode in MODES:
+            t0 = time.perf_counter()
+            ref = edge_ref(dev, mode, gaps)
+            for T in all_T():
+                got = sw_grouped.sw_scores_grouped(q, o, ql, e["slab"], tl, e["m32"][gaps],
+                                                   mode=mode, gap_open=gaps[0],
+                                                   gap_extend=gaps[1], threads_per_target=T)
+                torch.cuda.synchronize()
+                err = int((got.long() - ref.long()).abs().max())
+                max_err = max(max_err, err)
+                check(err == 0, f"pass boundaries {mode} gaps {gaps} T={T}: kernel differs "
+                                f"from twin by up to {err}")
+            say(f"[2] pass boundaries {mode} gaps {gaps[0]}/{gaps[1]}: G={len(e['qlens'])} "
+                f"B={e['B']} N={e['N']} qlens={tuple(e['qlens'])}, target lengths 0, 1, 15, "
+                f"16, 17, N and random: kernel == twin at every T (max |diff| 0, "
+                f"{time.perf_counter() - t0:.2f} s)")
     return max_err
 
 
@@ -324,19 +441,48 @@ def phase_resident_parity(dev):
         for mode in MODES:
             t0 = time.perf_counter()
             kw = dict(mode=mode, gap_open=go, gap_extend=ge)
-            got = sw_grouped.sw_scores_grouped_resident(q, o, ql, db, st, tl, m32, N, **kw)
             ref = scan.align_scores_grouped_resident(q, o, ql, db, st, tl, m32, N, **kw)
-            k1 = sw_grouped.sw_scores_grouped(q, o, ql, slab, tl, m32, **kw)
-            torch.cuda.synchronize()
-            err = int((got.long() - ref.long()).abs().max())
-            max_err = max(max_err, err, int((got.long() - k1.long()).abs().max()))
-            check(got.shape == (G, B) and got.dtype == torch.int32, f"{name} {mode}: shape/dtype")
-            check(err == 0, f"K3 {name} {mode}: differs from its plain version by up to {err}")
-            check(torch.equal(got, k1), f"K3 {name} {mode}: differs from K1 on the same windows")
-            check(_screen_equal(got, ref, G, B) and _screen_equal(got, k1, G, B),
-                  f"K3 {name} {mode}: screened words differ")
+            for T in all_T():
+                got = sw_grouped.sw_scores_grouped_resident(q, o, ql, db, st, tl, m32, N,
+                                                            threads_per_target=T, **kw)
+                k1 = sw_grouped.sw_scores_grouped(q, o, ql, slab, tl, m32, threads_per_target=T,
+                                                  **kw)
+                torch.cuda.synchronize()
+                err = int((got.long() - ref.long()).abs().max())
+                max_err = max(max_err, err, int((got.long() - k1.long()).abs().max()))
+                check(got.shape == (G, B) and got.dtype == torch.int32,
+                      f"{name} {mode} T={T}: shape/dtype")
+                check(err == 0, f"K3 {name} {mode} T={T}: differs from its plain version by up "
+                                f"to {err}")
+                check(torch.equal(got, k1), f"K3 {name} {mode} T={T}: differs from K1 on the "
+                                            f"same windows")
+                if T is None:
+                    check(_screen_equal(got, ref, G, B) and _screen_equal(got, k1, G, B),
+                          f"K3 {name} {mode}: screened words differ")
             say(f"[2b] {name:14s} {mode}: G={G} B={B} N={N} qlens={qlens}: K3 == plain == K1 "
-                f"on the same windows (max |diff| 0, {time.perf_counter() - t0:.2f} s)")
+                f"on the same windows at every T (max |diff| 0, {time.perf_counter() - t0:.2f} s)")
+    e = edge_set(dev)
+    q, o, ql, db, st, tl = e["args"]
+    for gaps in ((10, 1), (11, 2)):
+        for mode in MODES:
+            t0 = time.perf_counter()
+            ref = edge_ref(dev, mode, gaps)
+            kw = dict(mode=mode, gap_open=gaps[0], gap_extend=gaps[1])
+            for T in all_T():
+                got = sw_grouped.sw_scores_grouped_resident(q, o, ql, db, st, tl, e["m32"][gaps],
+                                                            e["N"], threads_per_target=T, **kw)
+                k1 = sw_grouped.sw_scores_grouped(q, o, ql, e["slab"], tl, e["m32"][gaps],
+                                                  threads_per_target=T, **kw)
+                torch.cuda.synchronize()
+                err = int((got.long() - ref.long()).abs().max())
+                max_err = max(max_err, err)
+                check(err == 0, f"K3 pass boundaries {mode} gaps {gaps} T={T}: differs from "
+                                f"its plain version by up to {err}")
+                check(torch.equal(got, k1), f"K3 pass boundaries {mode} gaps {gaps} T={T}: "
+                                            f"differs from K1 on the same windows")
+            say(f"[2b] pass boundaries {mode} gaps {gaps[0]}/{gaps[1]}: K3 == plain == K1 on "
+                f"the same windows at every T (max |diff| 0, {time.perf_counter() - t0:.2f} s)")
+    EDGE.clear()
     return max_err
 
 
@@ -353,6 +499,45 @@ def _time_ms(fn, iters, warmup):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def parent_turns(tag, what, this, parent, iters, card, cells=None):
+    """``this`` and ``parent`` (the kernels of --parent DIR) on the same
+    inputs: equal outputs, then timed in turns (parent, this, this,
+    parent).  Returns (parent ms, this ms), each the better of its two."""
+    import torch
+
+    check(torch.equal(parent(), this()), f"{what}: the parent's kernel gives other scores")
+    t = {"parent": [], "this": []}
+    for name, fn in (("parent", parent), ("this", this), ("this", this), ("parent", parent)):
+        t[name].append(_time_ms(fn, iters, warmup=1))
+    rate = (lambda ms: f" ({cells / ms / 1e6:.2f} GCUPS)") if cells else (lambda ms: "")
+    say(f"[{tag}] {what}, {card}, in turns: parent {t['parent'][0]:.3f} then "
+        f"{t['parent'][1]:.3f} ms{rate(min(t['parent']))}; this {t['this'][0]:.3f} then "
+        f"{t['this'][1]:.3f} ms{rate(min(t['this']))}; speed-up "
+        f"{min(t['parent']) / min(t['this']):.2f}x")
+    return min(t["parent"]), min(t["this"])
+
+
+def load_parent(root):
+    """The K1, K3 and K4 wrappers of another checkout of the port at
+    ``root``, its package imported under a name of its own: they build
+    that checkout's kernels into its own build directory, bind them with
+    its own C signatures and count launches in its own counters."""
+    import importlib
+    import importlib.util
+
+    pkg = os.path.join(os.path.abspath(root), "sift4g_tpu_torch")
+    init = os.path.join(pkg, "__init__.py")
+    check(os.path.exists(init), f"--parent {root}: not a checkout of the port")
+    name = "sift4g_tpu_torch_parent"
+    spec = importlib.util.spec_from_file_location(name, init, submodule_search_locations=[pkg])
+    sys.modules[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules[name])
+    sw = importlib.import_module(f"{name}.align.sw_grouped")
+    importlib.import_module(f"{name}.align._build").load()
+    return SimpleNamespace(k1=sw.sw_scores_grouped, k3=sw.sw_scores_grouped_resident,
+                           k4=sw.sw_scores_single)
 
 
 def phase_timing(dev, card):
@@ -376,8 +561,12 @@ def phase_timing(dev, card):
     plain_ms = _time_ms(twin, iters=2, warmup=1)
     cells = G * B * N * m
     say(f"[3] bench shape G={G} B={B} N={N} m={m} ({cells / 1e9:.2f} G cells), {card}: "
-        f"kernel {ms:.3f} ms = {cells / ms / 1e6:.2f} GCUPS; twin {plain_ms:.3f} ms = "
+        f"kernel {ms:.3f} ms = {cells / ms / 1e6:.2f} GCUPS at (T, block) = "
+        f"{sw_grouped.launch_geometry(G, B, N, dev)}; twin {plain_ms:.3f} ms = "
         f"{cells / plain_ms / 1e6:.2f} GCUPS")
+    if PARENT["k"]:
+        parent_turns("3", "K1 at the bench launch", kernel,
+                     lambda: PARENT["k"].k1(*args, m32), 10, card, cells)
     torch.cuda.synchronize()
     return err, cells / ms / 1e6
 
@@ -393,18 +582,33 @@ def phase_long_rungs(dev, card):
     rows = []
     for name, B, N in (("long-target", 256, 8192), ("Titin-class", 32, 35008)):
         args = grouped_inputs(rng, 1, B, N, (360,), dev, zero_len=False)
-        got = sw_grouped.sw_scores_grouped(*args, m32)
         ref = scan.align_scores_grouped(*args, m32)
-        torch.cuda.synchronize()
-        err = int((got.long() - ref.long()).abs().max())
-        check(err == 0, f"K1 at the {name} shape differs from its plain version by {err}")
-        ms = _time_ms(lambda: sw_grouped.sw_scores_grouped(*args, m32), iters=2, warmup=1)
+        # every forced T at the first shape; the geometry's own at both
+        for T in all_T() if name == "long-target" else (None,):
+            got = sw_grouped.sw_scores_grouped(*args, m32, threads_per_target=T)
+            torch.cuda.synchronize()
+            err = int((got.long() - ref.long()).abs().max())
+            check(err == 0, f"K1 at the {name} shape, T={T}, differs from its plain version "
+                            f"by {err}")
+
+        def k1():
+            return sw_grouped.sw_scores_grouped(*args, m32)
+
+        ms = _time_ms(k1, iters=5, warmup=1)
         plain_ms = _time_ms(lambda: scan.align_scores_grouped(*args, m32), iters=1, warmup=0)
         nbytes, ops, true = _work("slab", args, {"mode": "SW"})
+        T, block = sw_grouped.launch_geometry(1, B, N, dev)
         say(f"[3b] {name} G=1 B={B} N={N} m=360 ({true / 1e9:.3f} G cells), {card}: K1 "
-            f"{ms:.3f} ms = {true / ms / 1e6:.3f} GCUPS; plain {plain_ms:.3f} ms; "
-            f"kernel == plain (max |diff| 0)")
-        rows.append(dict(name=name, B=B, N=N, ms=ms, plain_ms=plain_ms, work=(nbytes, ops)))
+            f"{ms:.3f} ms = {true / ms / 1e6:.3f} GCUPS at (T, block) = ({T}, {block}); plain "
+            f"{plain_ms:.3f} ms; kernel == plain (max |diff| 0"
+            f"{', at every forced T' if name == 'long-target' else ''})")
+        check(ms <= plain_ms, f"K1 at the {name} shape ({ms:.3f} ms) is slower than its plain "
+                              f"version ({plain_ms:.3f} ms)")
+        if PARENT["k"]:
+            parent_turns("3b", f"K1 at the {name} shape", k1,
+                         lambda: PARENT["k"].k1(*args, m32), 1, card, true)
+        rows.append(dict(name=name, B=B, N=N, ms=ms, plain_ms=plain_ms, work=(nbytes, ops),
+                         T=T))
     return rows
 
 
@@ -676,11 +880,17 @@ def phase_main_launches(recorded, card, kind, tag):
     plain_ms = _time_ms(lambda: plain(*args, **kw), iters=1, warmup=0)
     work = _work(kind, args, kw)[:2]
     bound_ms, bound_by = _bound(*work)
+    T, block = sw_grouped.launch_geometry(G, B, N, args[0].device)
+    per_cell = tiled_bytes_per_cell(T)
     say(f"[{tag}] largest main-path launch G={G} B={B} N={N}, {card}: kernel {ms:.3f} ms = "
-        f"{padded / ms / 1e6:.2f} GCUPS padded, {true / ms / 1e6:.2f} true; plain "
-        f"{plain_ms:.3f} ms; bound {bound_ms:.3f} ms ({bound_by}, at the peak int32 "
-        f"rate; recomputed at the end after phase 7's check); design bound "
-        f"(17 B/cell at 3.35 TB/s) {true * 17 / HBM_BYTES_PER_S * 1e3:.3f} ms")
+        f"{padded / ms / 1e6:.2f} GCUPS padded, {true / ms / 1e6:.2f} true, at (T, block) = "
+        f"({T}, {block}); plain {plain_ms:.3f} ms; bound {bound_ms:.3f} ms ({bound_by}, at the "
+        f"peak int32 rate; recomputed at the end after phase 7's check); design bound "
+        f"({per_cell:.4f} B/cell at 3.35 TB/s) {true * per_cell / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    if PARENT["k"]:
+        par = PARENT["k"].k1 if kind == "slab" else PARENT["k"].k3
+        parent_turns(tag, f"largest main-path launch G={G} B={B} N={N}",
+                     lambda: kernel(*args, **kw), lambda: par(*args, **kw), 3, card, true)
     if kind == "resident":
         # K1 on the same windows as a slab, timed between K3's turns
         q, o, ql, db, st, tl = args[:6]
@@ -692,7 +902,7 @@ def phase_main_launches(recorded, card, kind, tag):
             f"windows as a slab {k1_ms:.3f} ms ({true / k1_ms / 1e6:.2f} true GCUPS)")
         del slab
     torch.cuda.empty_cache()
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, work=work)
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, work=work, T=T)
 
 
 def phase_dp_row(dev, card):
@@ -821,9 +1031,10 @@ def phase_bench(card, k1_gcups):
     check(rec["launches"]["sw_grouped"] > 0 and rec["launches"]["dp_row_probe"] > 0,
           f"the bench launched K1/K5 no time: {rec['launches']}")
     say(f"[8] bench: {rec['value']:.3f} GCUPS (phase 3: {k1_gcups:.3f}), marginal "
-        f"{rec.get('marginal_gcups')}; K5 ceiling {rec['roofline_gcups']:.3f} GCUPS at B=65536 "
-        f"({rec['roofline_gcups_b1024']:.3f} at B=1024); roofline_pct "
-        f"{rec['roofline_pct']:.2f}, marginal {rec.get('marginal_roofline_pct')}; CPU scalar "
+        f"{rec.get('marginal_gcups')}; roofline_pct {rec['roofline_pct']:.2f} of the operations "
+        f"bound {rec['roofline_ops_gcups']:.3f} GCUPS, marginal "
+        f"{rec.get('marginal_roofline_pct')}; K5 {rec['roofline_gcups']:.3f} GCUPS at B=65536 "
+        f"({rec['roofline_gcups_b1024']:.3f} at B=1024); CPU scalar "
         f"{rec['baseline_gcups']:.3f}, SIMD {rec['cpu_simd_gcups']:.3f} GCUPS; {card}")
     return rec
 
@@ -890,6 +1101,26 @@ def phase_single_parity(dev):
             check(err == 0, f"K4 {name} {mode}: differs from its plain version by up to {err}")
             say(f"[9a] {name:14s} {mode}: B={B} N={N} qlen={qlen} gaps {go}/{ge}: K4 == plain "
                 f"(max |diff| 0, {time.perf_counter() - t0:.2f} s)")
+    # the tiled body's edge lengths, on the serial body
+    N = 200
+    m32 = scan.matrix32_from_scorer(SimpleNamespace(matrix=random_matrix(rng)), dev)
+    q, t, tl = single_inputs(rng, 64, N, 8192, 8192, dev)
+    tl[:6] = torch.tensor([0, 1, 15, 16, 17, N], dtype=torch.int32, device=dev)
+    qlens = (0, 1, 15, 16, 17, 511, 512, 513, 8192)
+    for mode in MODES:
+        t0 = time.perf_counter()
+        kw = dict(mode=mode, gap_open=11, gap_extend=2)
+        for qlen in qlens:
+            got = sw_grouped.sw_scores_single(q, qlen, t, tl, m32, **kw)
+            ref = scan.align_scores(q, qlen, t, tl, m32, **kw)
+            torch.cuda.synchronize()
+            err = int((got.long() - ref.long()).abs().max())
+            max_err = max(max_err, err)
+            check(err == 0, f"K4 edge lengths {mode} qlen={qlen}: differs from its plain "
+                            f"version by up to {err}")
+        say(f"[9a] edge lengths {mode}: B=64 N={N} qlens={qlens}, target lengths 0, 1, 15, "
+            f"16, 17, N and random, gaps 11/2: K4 == plain (max |diff| 0, "
+            f"{time.perf_counter() - t0:.2f} s)")
     return max_err
 
 
@@ -920,8 +1151,15 @@ def phase_single_timing(dev, card):
     say(f"[9b] K4 B={B} N={N} m={m} ({cells / 1e9:.2f} G cells), {card}: kernel {ms:.3f} ms = "
         f"{cells / ms / 1e6:.2f} GCUPS; plain {plain_ms:.3f} ms; bound {bound_ms:.3f} ms "
         f"({bound_by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s, {ops / 1e9:.2f} G int32 ops at "
-        f"{INT32['ops_per_s'] / 1e12:.3f} T/s); design bound (20 B/cell at 3.35 TB/s) "
-        f"{cells * 20 / HBM_BYTES_PER_S * 1e3:.3f} ms; kernel == plain (max |diff| 0)")
+        f"{INT32['ops_per_s'] / 1e12:.3f} T/s); design bound (serial body, "
+        f"{K4_BYTES_PER_CELL} B/cell at 3.35 TB/s) "
+        f"{cells * K4_BYTES_PER_CELL / HBM_BYTES_PER_S * 1e3:.3f} ms; kernel == plain "
+        f"(max |diff| 0)")
+    if PARENT["k"]:
+        par, this = parent_turns("9b", f"K4 at B={B} N={N} m={m}", kernel,
+                                 lambda: PARENT["k"].k4(q, m, t, tl, m32), 10, card, cells)
+        check(abs(this - par) <= 0.03 * par, f"K4 moved {100 * (this / par - 1):+.2f} % from "
+                                             f"the parent's (the serial body is unchanged)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, work=(nbytes, ops))
 
 
@@ -1133,9 +1371,21 @@ def run_phase(tag, fn, *args):
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    parent = None
+    if argv[:1] == ["--parent"] and len(argv) == 2:
+        parent = argv[1]
+    elif argv:
+        print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
+        return 2
     card = run_phase("1", phase_build)
     import torch
+
+    if parent:
+        t0 = time.perf_counter()
+        PARENT["k"] = load_parent(parent)
+        say(f"[1] the parent's kernels from {parent} built in {time.perf_counter() - t0:.2f} s")
 
     dev = torch.device("cuda", 0)
     err_k1 = run_phase("2", phase_parity, dev)
@@ -1164,7 +1414,8 @@ def main() -> int:
     for row in long_rungs:
         bound_ms, bound_by = _bound(*row["work"])
         say(f"[3b] {row['name']} B={row['B']} N={row['N']}, {card}: K1 {row['ms']:.3f} ms, "
-            f"plain {row['plain_ms']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+            f"plain {row['plain_ms']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); design "
+            f"bound ({tiled_bytes_per_cell(row['T']):.4f} B/cell at T={row['T']})")
     kernels = []
     for meta, k, launches in ((K1, k1, main_path.launches), (K3, k3, k3_launches),
                               (K4, k4, k4["launches"]), (K5, k5, k5["launches"]),

@@ -84,6 +84,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp, vp, vp,               # targets, lens, matrix32
         i32, i32, i32,            # G, B, N
         i32, i32, i32,            # mode, go, ge
+        i32, i32,                 # threads per target, block
         vp, vp, vp,               # scratch, out, stream
     ]
     lib.sift4g_sw_grouped_resident.restype = i32
@@ -93,6 +94,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp, vp,                   # lens, matrix32
         i32, i32, i32,            # G, B, N
         i32, i32, i32,            # mode, go, ge
+        i32, i32,                 # threads per target, block
         vp, vp, vp,               # scratch, out, stream
     ]
     lib.sift4g_sw_single.restype = i32

@@ -11,6 +11,12 @@ the device of their tensors: CPU tensors go to the plain PyTorch versions
 ``csrc/sw_single.cu``, built on first use.  A CUDA call launches the
 kernel or raises; there is no fallback to the plain version.
 
+K1 and K3 run the tiled body of ``csrc/sw_tiled.cuh``: T threads score
+one target, each holding ``TILE_ROWS`` query rows.  ``tile_geometry``
+picks T and the block from the launch's shape and the card's SM count;
+``threads_per_target=`` forces T (tests and ``chip_smoke.py`` run every
+value).  K4 keeps the serial body of ``csrc/sw_grouped.cuh``.
+
 Counters (plain integers a run reads to show which path it took):
 ``kernel_launches`` counts K1 launches made here, ``resident_launches``
 K3 launches, ``single_launches`` K4 launches, and ``twin_calls_on_cuda``
@@ -20,11 +26,24 @@ kernel makes those).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build, scan
 
 MODE_IDS = {"SW": 0, "NW": 1, "HW": 2, "OV": 3}
+
+# the tiled body's query rows per thread (kRows of csrc/sw_tiled.cuh)
+TILE_ROWS = 16
+GROUP_THREADS = (1, 2, 4, 8, 16, 32)
+# the fewest threads per target the geometry gives a launch: at 8 (128
+# rows a pass) K1 ran 5-22 % faster than at 1, 2 or 4 on the bench launch
+# and on launches of the main path's shape (tools/bench_tiled.py threads)
+MIN_GROUP_THREADS = 8
+# warps per SM the geometry puts on the card at least, and the largest block
+WARPS_PER_SM = 16
+MAX_BLOCK = 128
 
 kernel_launches = 0
 resident_launches = 0
@@ -51,6 +70,55 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _threads_checked(threads_per_target):
+    if threads_per_target is None:
+        return None
+    if isinstance(threads_per_target, bool) or threads_per_target not in GROUP_THREADS:
+        raise ValueError(
+            f"threads_per_target must be one of {GROUP_THREADS}, got {threads_per_target!r}")
+    return int(threads_per_target)
+
+
+def tile_geometry(G: int, B: int, N: int, sm_count: int, threads_per_target=None):
+    """(T, block): threads per target and threads per block of a K1/K3
+    launch of G groups of B targets on an N-wide rung, on a card of
+    ``sm_count`` SMs.
+
+    T is the smallest power of two from ``MIN_GROUP_THREADS`` up that puts
+    ``WARPS_PER_SM`` warps on every SM (``G * B * T >= sm_count *
+    WARPS_PER_SM * 32``), at most 32 (one warp a target) and at most N /
+    8, so that the wavefront's T - 1 idle steps stay under an eighth of a
+    pass.  The block holds
+    ``MAX_BLOCK`` threads, halved down to one warp while the launch would
+    leave SMs without a block.  The query lengths are not read: they live
+    on the card, and the kernel loops its passes over them.
+    ``threads_per_target`` forces T."""
+    T = _threads_checked(threads_per_target)
+    if T is None:
+        want = sm_count * WARPS_PER_SM * 32
+        T = MIN_GROUP_THREADS
+        while T < 32 and G * B * T < want:
+            T *= 2
+        while T > 1 and 8 * T > N:
+            T //= 2
+    block = MAX_BLOCK
+    while block > 32 and G * -(-B * T // block) < sm_count:
+        block //= 2
+    return T, block
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_geometry(G: int, B: int, N: int, device, threads_per_target=None):
+    """:func:`tile_geometry` on the card ``device``."""
+    dev = torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return tile_geometry(G, B, N, _sm_count(index), threads_per_target)
+
+
 def sw_scores_grouped(
     q_codes_all: torch.Tensor,   # (Qm,) int32 concatenated queries
     q_offsets: torch.Tensor,     # (G,) int32
@@ -62,10 +130,14 @@ def sw_scores_grouped(
     mode: str = "SW",
     gap_open: int = 10,
     gap_extend: int = 1,
+    threads_per_target: int | None = None,
 ) -> torch.Tensor:
-    """Scores (G, B) int32: group g = query g against its B targets."""
+    """Scores (G, B) int32: group g = query g against its B targets.
+    ``threads_per_target`` forces the kernel's T (see
+    :func:`tile_geometry`); the plain version ignores it."""
     if mode not in MODE_IDS:
         raise ValueError(f"unknown alignment mode {mode!r}")
+    _threads_checked(threads_per_target)
     dev = targets.device
     if dev.type == "cpu":
         return scan.align_scores_grouped(
@@ -86,9 +158,10 @@ def sw_scores_grouped(
     if G > 65535:
         raise ValueError(f"{G} groups exceed the launch grid (65535)")
 
+    T, block = launch_geometry(G, B, N, dev, threads_per_target)
     lib = _build.load()
     out = torch.empty((G, B), dtype=torch.int32, device=dev)
-    # (H, F) of the previous query row per (group, column, target); freed
+    # (H, F) of a pass's last query row per (group, column, target); freed
     # to the caching allocator on return, which reuses it only for work
     # queued after this launch on the same stream
     scratch = torch.empty((G, N, B, 2), dtype=torch.int32, device=dev)
@@ -98,7 +171,7 @@ def sw_scores_grouped(
             q_codes_all.data_ptr(), q_codes_all.shape[0],
             q_offsets.data_ptr(), q_lens.data_ptr(),
             targets.data_ptr(), target_lens.data_ptr(), matrix32.data_ptr(),
-            G, B, N, MODE_IDS[mode], int(gap_open), int(gap_extend),
+            G, B, N, MODE_IDS[mode], int(gap_open), int(gap_extend), T, block,
             scratch.data_ptr(), out.data_ptr(), stream,
         )
     if rc != 0:
@@ -121,9 +194,12 @@ def sw_scores_grouped_resident(
     mode: str = "SW",
     gap_open: int = 10,
     gap_extend: int = 1,
+    threads_per_target: int | None = None,
 ) -> torch.Tensor:
     """Scores (G, B) int32: group g = query g against the rows of the
     resident database at ``t_starts[g]``, each ``target_lens[g, b]`` long.
+    ``threads_per_target`` forces the kernel's T, as for
+    :func:`sw_scores_grouped`.
 
     On a card the starts are checked without a host sync: a start that is
     misaligned, negative or whose ``n_pad`` window leaves the database
@@ -131,6 +207,7 @@ def sw_scores_grouped_resident(
     empty, so it never reads out of bounds)."""
     if mode not in MODE_IDS:
         raise ValueError(f"unknown alignment mode {mode!r}")
+    _threads_checked(threads_per_target)
     dev = db.device
     if dev.type == "cpu":
         return scan.align_scores_grouped_resident(
@@ -159,6 +236,7 @@ def sw_scores_grouped_resident(
             & (t_starts.max() <= db.numel() - N)
         )
 
+    T, block = launch_geometry(G, B, N, dev, threads_per_target)
     lib = _build.load()
     out = torch.empty((G, B), dtype=torch.int32, device=dev)
     scratch = torch.empty((G, N, B, 2), dtype=torch.int32, device=dev)
@@ -169,7 +247,7 @@ def sw_scores_grouped_resident(
             q_offsets.data_ptr(), q_lens.data_ptr(),
             db.data_ptr(), db.numel(), t_starts.data_ptr(),
             target_lens.data_ptr(), matrix32.data_ptr(),
-            G, B, N, MODE_IDS[mode], int(gap_open), int(gap_extend),
+            G, B, N, MODE_IDS[mode], int(gap_open), int(gap_extend), T, block,
             scratch.data_ptr(), out.data_ptr(), stream,
         )
     if rc != 0:

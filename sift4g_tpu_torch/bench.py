@@ -19,13 +19,20 @@ Baseline: the port's native C++ DP at the same shape on the host, scalar
 (``SIFT4G_TPU_NO_SIMD=1``, the reference's plain CPU build) and SIMD;
 ``vs_baseline`` divides by the scalar one.
 
-Ceiling: the row-engine probe K5 (``align/roofline.py``), re-probed in
-this run after the timed calls.  ``roofline_gcups`` is K5 at B=65,536
-rows, the thread count of the bench launch, whose 268 MB scratch lies
-past L2 as K1's does; ``roofline_pct`` and ``marginal_roofline_pct``
-divide by it.  ``roofline_gcups_b1024`` is K5 at the JAX default of 1024
-rows, whose 4 MB scratch sits in L2 but whose 8 blocks use 8 of the 132
-SMs; it is printed for the JAX record's sake and divides nothing.
+Ceiling: ``roofline_pct`` and ``marginal_roofline_pct`` divide K1's rate
+by the card's operations bound for a Smith-Waterman cell,
+``roofline_ops_gcups``: its peak int32 rate (``roofline.int32_peak_rate``,
+2 operations per fused add-and-max x 64 instructions per clock per SM x
+SMs x the maximum SM clock; 33.454 T ops/s on an H100) over the 11 int32
+operations of a cell (``SW_OPS_PER_CELL``), so no kernel can pass 100 %.
+The JAX record divides by its row-engine probe instead, and until the
+tiled K1 the port did too; the tiled body runs past that probe, which
+measures the one-thread-per-row design K1 has left, so it bounds nothing.
+The probe K5 (``align/roofline.py``) is still re-probed after the timed
+calls and kept: ``roofline_gcups`` is K5 at B=65,536 rows, the bench
+launch's former thread count, whose 268 MB scratch lies past L2;
+``roofline_gcups_b1024`` is K5 at the JAX default of 1024 rows (4 MB of
+scratch in L2, 8 blocks on 8 of the 132 SMs).  Neither divides anything.
 
 Prints one JSON line, with the card's name and power limit, the clocks
 sampled beside each measurement, and the launches of K1 and K5.  A host
@@ -44,6 +51,20 @@ import time
 
 import numpy as np
 import torch
+
+# int32 adds, subtracts and maxes of one SW cell in the kernels' recurrence
+# (F 3, G 2, E 3, H 1, the zero floor and the running best)
+SW_OPS_PER_CELL = 11
+
+
+def roofline_fields(gcups, marginal_gcups, int32_ops_per_s):
+    """``roofline_ops_gcups`` (the operations bound of an SW cell, in
+    GCUPS) and K1's rates as percentages of it."""
+    bound = int32_ops_per_s / SW_OPS_PER_CELL / 1e9
+    out = {"roofline_ops_gcups": bound, "roofline_pct": 100.0 * gcups / bound}
+    if marginal_gcups:
+        out["marginal_roofline_pct"] = 100.0 * marginal_gcups / bound
+    return out
 
 
 def grouped_launch(device, groups=64, batch=1024, n=512, m=360, seed=42):
@@ -171,6 +192,7 @@ def main() -> int:
     clocks["after K5 at B=65536"] = roofline.gpu_state()
     probe_1024 = roofline.dp_row_roofline(device=device)
     clocks["after K5 at B=1024"] = roofline.gpu_state()
+    peak, peak_src = roofline.int32_peak_rate(device)
 
     out = {
         "metric": "sw_score_gcups[cuda-grouped]",
@@ -180,6 +202,8 @@ def main() -> int:
         "baseline_gcups": baseline,
         "cpu_simd_gcups": cpu_simd,
         **{k: v for k, v in detail.items() if v is not None},
+        **roofline_fields(gcups, detail.get("marginal_gcups"), peak),
+        "roofline_ops_src": f"{peak_src}; / {SW_OPS_PER_CELL} int32 operations a SW cell",
         "roofline_gcups": probe["gcups"],
         "roofline_src": "in-run K5, B=65536 N=512, rows 120 -> 360",
         "roofline_t_lo_s": probe["t_lo_s"],
@@ -188,7 +212,6 @@ def main() -> int:
         "roofline_gcups_b1024": probe_1024["gcups"],
         "roofline_b1024_t_lo_s": probe_1024["t_lo_s"],
         "roofline_b1024_t_hi_s": probe_1024["t_hi_s"],
-        "roofline_pct": 100.0 * gcups / probe["gcups"],
         "card": name,
         "power_limit": power_limit,
         "device": torch.cuda.get_device_name(device),
@@ -198,8 +221,6 @@ def main() -> int:
             "dp_row_probe": roofline.dp_row_launches,
         },
     }
-    if detail.get("marginal_gcups"):
-        out["marginal_roofline_pct"] = 100.0 * detail["marginal_gcups"] / probe["gcups"]
     print(json.dumps(out))
     return 0
 

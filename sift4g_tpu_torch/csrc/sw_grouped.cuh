@@ -1,10 +1,10 @@
 // Grouped affine-gap alignment scores (SW / NW / HW / OV) for Hopper: the
-// kernel body shared by K1 (sw_grouped.cu, target slabs), K3
-// (sw_grouped_resident.cu, the device-resident database) and K4
-// (sw_single.cu, one query against int32 target rows).  They differ only
-// in where a row's codes come from (the Rows policies below, each a loader
-// of "the next 16 codes of row (g, b)"), so their arithmetic cannot drift
-// apart.
+// serial kernel body, which K4 (sw_single.cu, one query against int32
+// target rows) alone uses, and the row policies (each a loader of "the
+// next 16 codes of row (g, b)") and Mode that it shares with the tiled
+// body of K1 (sw_grouped.cu, target slabs) and K3 (sw_grouped_resident.cu,
+// the device-resident database) in sw_tiled.cuh.  The two bodies compute
+// the same recurrence cell for cell.
 //
 // Group g scores the query q_all[q_off[g] : q_off[g] + q_len[g]] against
 // its B targets (a policy with grouped == false has one query, at 0, and
@@ -28,10 +28,9 @@
 // about 16 bytes of scratch traffic per cell unless L2 holds the scratch
 // (it does not at production launch sizes), plus 1 byte of target code,
 // so this design is bound by device-memory bandwidth: 17 B/cell at
-// 3.35 TB/s is about 197 G cells/s.  Later work: register-tiled columns
-// (several query rows per pass, so the scratch is touched once per tile),
-// a query profile in shared memory, and the DPX intrinsics __viaddmax_s32
-// and __vimax3_s32 for the max-plus updates.
+// 3.35 TB/s is about 197 G cells/s (K4 reads 4 B of int32 codes, 20
+// B/cell).  sw_tiled.cuh is the design that lifts this bound (several
+// threads per target, query rows in registers); K4 moves onto it next.
 //
 // Contract (checked by the Python wrappers): a row's codes at j >= len may
 // hold anything and are never read as matrix indices (only their low five

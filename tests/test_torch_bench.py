@@ -53,6 +53,26 @@ def no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+@pytest.mark.parametrize("marginal", [None, 1500.0], ids=["no-marginal", "marginal"])
+def test_roofline_pct_divides_by_the_operations_bound(marginal):
+    """33.454 T int32 ops/s (the H100's peak at 1980 MHz) over 11
+    operations a cell bound K1 at 3041.3 GCUPS; K5's rate divides nothing."""
+    from sift4g_tpu_torch import bench
+
+    peak = 2 * 64 * 132 * 1980e6
+    got = bench.roofline_fields(1857.0, marginal, peak)
+    bound = peak / 11 / 1e9
+    assert got["roofline_ops_gcups"] == pytest.approx(3041.28, abs=0.01)
+    assert got["roofline_pct"] == pytest.approx(100 * 1857.0 / bound)
+    assert 0 < got["roofline_pct"] <= 105
+    if marginal:
+        assert got["marginal_roofline_pct"] == pytest.approx(100 * marginal / bound)
+    else:
+        assert "marginal_roofline_pct" not in got
+    # a rate at the bound is 100 %
+    assert bench.roofline_fields(bound, None, peak)["roofline_pct"] == pytest.approx(100.0)
+
+
 @pytest.mark.parametrize("cmd", ["roofline2", "roofline4", "dprow", "g64", "g128"])
 def test_bench_ab_card_commands_fail_without_a_card(no_gpu, cmd, capsys):
     assert bench_ab.main([cmd]) == 1

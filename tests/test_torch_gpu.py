@@ -1,6 +1,9 @@
 """The CUDA kernels (K1 on slabs, K3 on the resident database, K4 on
 int32 rows, the probes K5 and K6) against their plain PyTorch versions,
-and the sharded factories on two shards of the card, on the card.
+and the sharded factories on two shards of the card, on the card.  K1 and
+K3 run at every forced ``threads_per_target`` of the tiled body, at the
+query lengths where its passes change and the target lengths where its
+column loads change.
 
 These tests need a CUDA device and skip without one.  They import no JAX,
 so they run on a GPU host that has none:
@@ -12,8 +15,13 @@ import pytest
 import torch
 
 from sift4g_tpu_torch.align import scan, sw_grouped
+from sift4g_tpu_torch.align.sw_grouped import GROUP_THREADS, TILE_ROWS
 
 MODES = ["SW", "NW", "HW", "OV"]
+# an empty query, one row, every pass boundary (T * TILE_ROWS rows, one
+# less and one more) of every T, and an 8,192-residue query
+EDGE_QLENS = tuple(sorted({0, 1, 8192} | {T * TILE_ROWS + d for T in GROUP_THREADS
+                                          for d in (-1, 0, 1)}))
 
 
 @pytest.fixture
@@ -126,6 +134,52 @@ def test_resident_kernel_matches_plain_and_slab_kernel(cuda, mode, shape):
     assert torch.equal(got, k1)
 
 
+def _edge_inputs(seed, qlens, B, N, dev):
+    """K3's inputs with target lengths 0, 1, 15, 16, 17 and N in every
+    group beside random ones, and K1's slab of the same windows."""
+    from sift4g_tpu_torch.align.resident import ResidentDB
+
+    rng = np.random.default_rng(seed)
+    G = len(qlens)
+    lens_seq = rng.integers(0, N + 1, G * B + 1).astype(np.int64)
+    ids = np.sort(rng.choice(G * B + 1, G * B, replace=False)).reshape(G, B)
+    fixed = np.array([0, 1, 15, 16, 17, N])
+    # give each group's first six rows the edge lengths
+    lens_seq[ids[:, :6]] = fixed
+    offsets = np.concatenate(([0], np.cumsum(lens_seq)))
+    codes = rng.integers(0, 26, int(offsets[-1])).astype(np.uint8)
+    rdb = ResidentDB(codes, offsets, dev)
+    qlens = np.asarray(qlens, dtype=np.int32)
+    offs = np.concatenate(([0], np.cumsum(qlens)[:-1])).astype(np.int32)
+    q_all = np.full(int(qlens.sum()) + 1, 31, dtype=np.int32)
+    q_all[: qlens.sum()] = rng.integers(0, 26, int(qlens.sum()))
+    host = (q_all, offs, qlens, rdb.slot_off[ids], lens_seq[ids].astype(np.int32))
+    q, o, ql, st, tl = [torch.from_numpy(a).to(dev) for a in host]
+    slab = rdb.dev[st[..., None] + torch.arange(N, device=dev)].view(torch.int8).contiguous()
+    return (q, o, ql, rdb.dev, st, tl), slab
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gaps", [(10, 1), (11, 2)], ids=["gaps10-1", "gaps11-2"])
+@pytest.mark.parametrize("mode", MODES)
+def test_tiled_kernels_at_every_T_and_pass_boundary(cuda, mode, gaps):
+    """K1 and K3 at the geometry's own T and at every forced T, against
+    the plain version, and K3 against K1 on the same windows."""
+    go, ge = gaps
+    N = 256
+    (q, o, ql, db, st, tl), slab = _edge_inputs(17, EDGE_QLENS, 24, N, cuda)
+    m32 = scan.matrix32_from_scorer(_blosum62(), cuda)
+    kw = dict(mode=mode, gap_open=go, gap_extend=ge)
+    ref = scan.align_scores_grouped(q, o, ql, slab, tl, m32, **kw)
+    for T in (None, *GROUP_THREADS):
+        k1 = sw_grouped.sw_scores_grouped(q, o, ql, slab, tl, m32, threads_per_target=T, **kw)
+        k3 = sw_grouped.sw_scores_grouped_resident(q, o, ql, db, st, tl, m32, N,
+                                                   threads_per_target=T, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(k1, ref), f"K1 T={T}"
+        assert torch.equal(k3, ref), f"K3 T={T}"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "case",
@@ -210,6 +264,23 @@ def test_single_kernel_matches_plain(cuda, mode, shape):
     assert sw_grouped.single_launches == launches + 2
     assert got.dtype == torch.int32 and got.shape == (B,)
     assert torch.equal(got, ref) and torch.equal(got2, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+def test_single_kernel_at_the_edge_lengths(cuda, mode):
+    """K4 (the serial body) at the tiled body's edge query lengths and at
+    target lengths 0, 1, 15, 16, 17 and N, gaps 11/2."""
+    N = 200
+    q, t, tl = _single_inputs(21, 64, N, 8192, 8192, cuda)
+    tl[:6] = torch.tensor([0, 1, 15, 16, 17, N], dtype=torch.int32, device=cuda)
+    m32 = scan.matrix32_from_scorer(_blosum62(), cuda)
+    for qlen in (0, 1, 15, 16, 17, 511, 512, 513, 8192):
+        got = sw_grouped.sw_scores_single(q, qlen, t, tl, m32, mode=mode, gap_open=11,
+                                          gap_extend=2)
+        ref = scan.align_scores(q, qlen, t, tl, m32, mode=mode, gap_open=11, gap_extend=2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), f"qlen={qlen}"
 
 
 @pytest.mark.gpu
