@@ -7,7 +7,10 @@
 commit unpacked with ``git archive``) also imports DIR's package under a
 name of its own, builds DIR's kernels through DIR's own wrappers and
 times its K1, K3 and K4 beside this checkout's, in turns (parent, this,
-this, parent) on the same inputs, in phases 3, 3b, 5, 5b and 9b.
+this, parent) on the same inputs, in phases 3, 3b, 5, 5b and 9b (and
+prints, in phase 1, which scorer kernels' SASS is the parent's): K1 and K3
+must stay within 3 % of the parent's in phases 3, 5 and 5b, and K4 must be
+faster than the parent's in 9b.
 
 Phases, in order; the first failure ends the run with a non-zero exit:
 
@@ -62,7 +65,7 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    with gaps 11/2); then the marginal rate at B=1024 and at the bench
    launch's B=65,536 with the card's clocks and power;
 7. K6, the int32 probes, against their plain version for 1, 2 and 4
-   pairs in both forms (plain and DPX), exact; then ``bench_ab roofline``,
+   pairs, exact; then ``bench_ab roofline``,
    ``roofline2`` and ``roofline4`` (counted: these are K6's path), each
    rate beside the card's peak int32 rate as a check of it, and the
    opcodes of each variant's loop from ``cuobjdump -sass``.  The
@@ -78,16 +81,19 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 9. (run after phase 4b, on its database) several devices and K4.  The
    device list is every visible card, or ``[cuda:0, cuda:0]`` (two shards
    of the one card) on a one-card host.
-   9a. K4 (one query against int32 rows, the serial body) against its
-       plain version, exact, in all four modes: ragged lengths with
-       zero-length rows and int32 garbage (0..31) past every length,
-       N=200, B=1 with N=37 (the scalar loads), an 8,192-residue query,
-       gaps 11/2, and the tiled body's edge lengths (queries of 0, 1, 15,
-       16, 17, 511, 512, 513 and 8,192; targets of 0, 1, 15, 16, 17 and
-       N);
+   9a. K4 (one query against int32 rows, on the tiled body) against its
+       plain version, exact, in all four modes, at the T its geometry
+       rule picks and at every forced T: ragged lengths with zero-length
+       rows and int32 garbage from the whole int32 range past every
+       length, N=200, B=1 with N=37 (the loader's scalar tail, with no
+       row after it), an 8,192-residue query, gaps 11/2, and the pass
+       boundaries (queries of 0, 1, 8,192 and T x 16 - 1, T x 16,
+       T x 16 + 1 for every T; targets of 0, 1, 15, 16, 17 and N);
    9b. K4 at full width, timed with CUDA events: a 360-residue query
-       against 65,536 targets of 512 residues (K5's bench shape), exact
-       against the plain version, which is timed too;
+       against 65,536 targets of 512 residues (K5's bench shape, the
+       cells and the launch of phase 3's K1), exact against the plain
+       version, which is timed too, beside its design bound
+       ((16 + 4) / (16 T) bytes per cell);
    9c. every factory of ``parallel/sharded.py`` on the device list, exact
        against the unsharded kernel on the same inputs:
        ``make_sharded_scores``, ``make_sharded_topk_align`` (k=64),
@@ -172,17 +178,18 @@ INT32 = {"ops_per_s": None, "src": ""}
 OPS_PER_CELL = {"SW": 11, "NW": 9, "HW": 9, "OV": 9}
 # the K1/K3/K4 wrappers of --parent DIR (load_parent), or None
 PARENT = {"k": None}
-# device-memory bytes per cell of the designs: K4's serial body reads and
-# writes its 16-byte H/F pair and reads a 4-byte int32 code at every cell;
-# the tiled body (K1, K3) moves 17 bytes per column and pass of T x
-# TILE_ROWS rows
-K4_BYTES_PER_CELL = 20
+# K1 and K3 (and the kernels of --parent DIR) within this share of the
+# parent's time in turns
+PARENT_TOLERANCE = 0.03
 
 
-def tiled_bytes_per_cell(T):
+def tiled_bytes_per_cell(T, code_bytes=1):
+    """Device-memory bytes per cell of the tiled body: per column and pass
+    of T x TILE_ROWS rows, 16 bytes of (H, F) scratch and the target's
+    code (1 byte in K1/K3, 4 in K4's int32 rows)."""
     from sift4g_tpu_torch.align.sw_grouped import TILE_ROWS
 
-    return 17 / (T * TILE_ROWS)
+    return (16 + code_bytes) / (T * TILE_ROWS)
 
 
 def say(msg: str) -> None:
@@ -519,6 +526,15 @@ def parent_turns(tag, what, this, parent, iters, card, cells=None):
     return min(t["parent"]), min(t["this"])
 
 
+def check_unmoved(what, parent_ms, this_ms):
+    """A kernel whose algorithm this tree leaves alone stays within
+    ``PARENT_TOLERANCE`` of the parent's time in turns."""
+    moved = this_ms / parent_ms - 1
+    check(abs(moved) <= PARENT_TOLERANCE,
+          f"{what} moved {100 * moved:+.2f} % from the parent's (limit "
+          f"{100 * PARENT_TOLERANCE:g} %)")
+
+
 def load_parent(root):
     """The K1, K3 and K4 wrappers of another checkout of the port at
     ``root``, its package imported under a name of its own: they build
@@ -535,9 +551,32 @@ def load_parent(root):
     sys.modules[name] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sys.modules[name])
     sw = importlib.import_module(f"{name}.align.sw_grouped")
-    importlib.import_module(f"{name}.align._build").load()
+    build = importlib.import_module(f"{name}.align._build")
+    build.load()
     return SimpleNamespace(k1=sw.sw_scores_grouped, k3=sw.sw_scores_grouped_resident,
-                           k4=sw.sw_scores_single)
+                           k4=sw.sw_scores_single, library=build.library_path())
+
+
+def sass_against_parent():
+    """Each scorer kernel of this tree's library and of the parent's, its
+    SASS instruction count, and whether it is the parent's instruction for
+    instruction (a kernel whose source this tree leaves alone keeps it)."""
+    from sift4g_tpu_torch.align import roofline
+
+    this, par = roofline.library_sass(), roofline.library_sass(PARENT["k"].library)
+    if this is None or par is None:
+        say("[1] SASS: cuobjdump not found; not compared with the parent's")
+        return
+    this, par = roofline.sass_instructions(this), roofline.sass_instructions(par)
+    for name in sorted(n for n in set(this) | set(par) if "sw_" in n):
+        if name not in this:
+            say(f"[1] SASS {name}: only in the parent's library")
+        elif name not in par:
+            say(f"[1] SASS {name}: {len(this[name])} instructions, not in the parent's library")
+        else:
+            same = "identical to" if this[name] == par[name] else "differs from"
+            say(f"[1] SASS {name}: {len(this[name])} instructions, {same} the parent's "
+                f"({len(par[name])})")
 
 
 def phase_timing(dev, card):
@@ -565,8 +604,9 @@ def phase_timing(dev, card):
         f"{sw_grouped.launch_geometry(G, B, N, dev)}; twin {plain_ms:.3f} ms = "
         f"{cells / plain_ms / 1e6:.2f} GCUPS")
     if PARENT["k"]:
-        parent_turns("3", "K1 at the bench launch", kernel,
-                     lambda: PARENT["k"].k1(*args, m32), 10, card, cells)
+        check_unmoved("K1 at the bench launch", *parent_turns(
+            "3", "K1 at the bench launch", kernel, lambda: PARENT["k"].k1(*args, m32), 10,
+            card, cells))
     torch.cuda.synchronize()
     return err, cells / ms / 1e6
 
@@ -889,8 +929,9 @@ def phase_main_launches(recorded, card, kind, tag):
         f"({per_cell:.4f} B/cell at 3.35 TB/s) {true * per_cell / HBM_BYTES_PER_S * 1e3:.3f} ms")
     if PARENT["k"]:
         par = PARENT["k"].k1 if kind == "slab" else PARENT["k"].k3
-        parent_turns(tag, f"largest main-path launch G={G} B={B} N={N}",
-                     lambda: kernel(*args, **kw), lambda: par(*args, **kw), 3, card, true)
+        what = f"{'K1' if kind == 'slab' else 'K3'}'s largest main-path launch G={G} B={B} N={N}"
+        check_unmoved(what, *parent_turns(tag, what, lambda: kernel(*args, **kw),
+                                          lambda: par(*args, **kw), 3, card, true))
     if kind == "resident":
         # K1 on the same windows as a slab, timed between K3's turns
         q, o, ql, db, st, tl = args[:6]
@@ -951,14 +992,12 @@ def phase_int32(dev, card):
     for pairs in roofline.INT32_PAIRS:
         ref = roofline.int32_probe_plain(M, 3, B=B, N=N, pairs=pairs, device=dev)
         check(int(ref.unique().numel()) > 1, "K6 parity case: every row equal")
-        for dpx in (False, True):
-            got = roofline.int32_probe(M, 3, B=B, N=N, pairs=pairs, dpx=dpx, device=dev)
-            torch.cuda.synchronize()
-            err = int((got.long() - ref.long()).abs().max())
-            max_err = max(max_err, err)
-            check(err == 0, f"K6 pairs={pairs} dpx={dpx}: differs from plain by {err}")
-            say(f"[7] K6 B={B} N={N} M={M} pairs={pairs} {'dpx' if dpx else 'plain'}: "
-                f"kernel == plain (max |diff| 0)")
+        got = roofline.int32_probe(M, 3, B=B, N=N, pairs=pairs, device=dev)
+        torch.cuda.synchronize()
+        err = int((got.long() - ref.long()).abs().max())
+        max_err = max(max_err, err)
+        check(err == 0, f"K6 pairs={pairs}: differs from plain by {err}")
+        say(f"[7] K6 B={B} N={N} M={M} pairs={pairs}: kernel == plain (max |diff| 0)")
     M = 25_000
     ms = _time_ms(lambda: roofline.int32_probe(M, 5, B=B, N=N, device=dev), iters=3, warmup=1)
     plain_ms = _time_ms(lambda: roofline.int32_probe_plain(M, 5, B=B, N=N, device=dev),
@@ -967,8 +1006,7 @@ def phase_int32(dev, card):
         f"{plain_ms:.3f} ms")
 
     roofline.reset_counters()
-    records = [rec for pairs in roofline.INT32_PAIRS
-               for rec in bench_ab.run_roofline(pairs=pairs, device=dev)]
+    records = [bench_ab.run_roofline(pairs=pairs, device=dev) for pairs in roofline.INT32_PAIRS]
     launches = roofline.int32_launches
     check(launches > 0, "bench_ab roofline launched K6 no time")
     peak = INT32["ops_per_s"]
@@ -983,9 +1021,10 @@ def phase_int32(dev, card):
     sass = roofline.int32_probe_sass()
     if sass is None:
         say("[7] SASS: cuobjdump not found; loop opcodes not read")
-    for (pairs, dpx), (ops, rounds, per) in sorted((sass or {}).items()):
-        say(f"[7] SASS loop of K6 pairs={pairs} {'dpx' if dpx else 'plain'}: {dict(ops)}; "
-            f"{rounds:g} rounds per pass, {per:.4f} instructions per element and round")
+    for pairs, (ops, rounds, per) in sorted((sass or {}).items()):
+        check(ops.get("VIADDMNMX", 0) > 0, f"K6 pairs={pairs}: the loop has no fused VIADDMNMX")
+        say(f"[7] SASS loop of K6 pairs={pairs}: {dict(ops)}; {rounds:g} rounds per pass, "
+            f"{per:.4f} instructions per element and round")
     best = max(records, key=lambda r: r["tops"])
     say(f"[7] check of the peak: K6's best, {best['metric']}, {best['tops']:.3f} T ops/s, is "
         f"{100 * best['tops'] * 1e12 / peak:.1f} % of the peak {peak / 1e12:.3f} T ops/s")
@@ -1041,14 +1080,17 @@ def phase_bench(card, k1_gcups):
 
 def single_inputs(rng, B, N, m_pad, qlen, dev, zero_len=True):
     """K4's inputs on the card: one query (PAD_CODE past ``qlen``) and B
-    int32 rows of width N, random codes 0..31 past every length and, with
-    ``zero_len``, ragged lengths with zero-length rows (else full rows)."""
+    int32 rows of width N, codes from the whole int32 range past every
+    length (a read past a length changes a score) and, with ``zero_len``,
+    ragged lengths with zero-length rows (else full rows); the first row
+    is N long."""
     import torch
 
-    targets = rng.integers(0, 32, (B, N)).astype(np.int32)
+    targets = rng.integers(-2**31, 2**31, (B, N), dtype=np.int64).astype(np.int32)
     lens = rng.integers(0 if zero_len else N, N + 1, B).astype(np.int32)
-    if zero_len and B > 1:
-        lens[0], lens[-1] = N, 0
+    if zero_len:
+        lens[-1] = 0
+    lens[0] = N
     mask = np.arange(N)[None, :] < lens[:, None]
     targets[mask] = rng.integers(0, 26, int(mask.sum()))
     q = np.full(m_pad, 31, dtype=np.int32)
@@ -1072,9 +1114,11 @@ def _sync_all():
 
 
 def phase_single_parity(dev):
-    """9a: K4 against its plain version, exact, in all four modes."""
+    """9a: K4 against its plain version, exact, in all four modes, at its
+    own T and at every forced T."""
     import torch
     from sift4g_tpu_torch.align import scan, sw_grouped
+    from sift4g_tpu_torch.align.sw_grouped import GROUP_THREADS, TILE_ROWS
 
     rng = np.random.default_rng(9)
     cases = [
@@ -1089,37 +1133,43 @@ def phase_single_parity(dev):
         m32 = scan.matrix32_from_scorer(SimpleNamespace(matrix=random_matrix(rng)), dev)
         q, t, tl = single_inputs(rng, B, N, m_pad, qlen, dev)
         ql = torch.tensor([qlen], dtype=torch.int32, device=dev)
+        auto = sw_grouped.launch_geometry(1, B, N, dev)
         for mode in MODES:
             t0 = time.perf_counter()
             kw = dict(mode=mode, gap_open=go, gap_extend=ge)
-            got = sw_grouped.sw_scores_single(q, ql, t, tl, m32, **kw)
             ref = scan.align_scores(q, qlen, t, tl, m32, **kw)
-            torch.cuda.synchronize()
-            err = int((got.long() - ref.long()).abs().max())
-            max_err = max(max_err, err)
-            check(got.shape == (B,) and got.dtype == torch.int32, f"K4 {name} {mode}: shape/dtype")
-            check(err == 0, f"K4 {name} {mode}: differs from its plain version by up to {err}")
+            for T in all_T():
+                got = sw_grouped.sw_scores_single(q, ql, t, tl, m32, threads_per_target=T, **kw)
+                torch.cuda.synchronize()
+                err = int((got.long() - ref.long()).abs().max())
+                max_err = max(max_err, err)
+                check(got.shape == (B,) and got.dtype == torch.int32,
+                      f"K4 {name} {mode} T={T}: shape/dtype")
+                check(err == 0, f"K4 {name} {mode} T={T}: differs from its plain version by up "
+                                f"to {err}")
             say(f"[9a] {name:14s} {mode}: B={B} N={N} qlen={qlen} gaps {go}/{ge}: K4 == plain "
-                f"(max |diff| 0, {time.perf_counter() - t0:.2f} s)")
-    # the tiled body's edge lengths, on the serial body
+                f"at its own (T, block) = {auto} and at every forced T (max |diff| 0, "
+                f"{time.perf_counter() - t0:.2f} s)")
+    # the tiled body's pass boundaries, for every T
     N = 200
     m32 = scan.matrix32_from_scorer(SimpleNamespace(matrix=random_matrix(rng)), dev)
     q, t, tl = single_inputs(rng, 64, N, 8192, 8192, dev)
     tl[:6] = torch.tensor([0, 1, 15, 16, 17, N], dtype=torch.int32, device=dev)
-    qlens = (0, 1, 15, 16, 17, 511, 512, 513, 8192)
+    qlens = sorted({0, 1, 8192} | {T * TILE_ROWS + d for T in GROUP_THREADS for d in (-1, 0, 1)})
     for mode in MODES:
         t0 = time.perf_counter()
         kw = dict(mode=mode, gap_open=11, gap_extend=2)
         for qlen in qlens:
-            got = sw_grouped.sw_scores_single(q, qlen, t, tl, m32, **kw)
             ref = scan.align_scores(q, qlen, t, tl, m32, **kw)
-            torch.cuda.synchronize()
-            err = int((got.long() - ref.long()).abs().max())
-            max_err = max(max_err, err)
-            check(err == 0, f"K4 edge lengths {mode} qlen={qlen}: differs from its plain "
-                            f"version by up to {err}")
-        say(f"[9a] edge lengths {mode}: B=64 N={N} qlens={qlens}, target lengths 0, 1, 15, "
-            f"16, 17, N and random, gaps 11/2: K4 == plain (max |diff| 0, "
+            for T in all_T():
+                got = sw_grouped.sw_scores_single(q, qlen, t, tl, m32, threads_per_target=T, **kw)
+                torch.cuda.synchronize()
+                err = int((got.long() - ref.long()).abs().max())
+                max_err = max(max_err, err)
+                check(err == 0, f"K4 pass boundaries {mode} qlen={qlen} T={T}: differs from its "
+                                f"plain version by up to {err}")
+        say(f"[9a] pass boundaries {mode}: B=64 N={N} qlens={tuple(qlens)}, target lengths 0, "
+            f"1, 15, 16, 17, N and random, gaps 11/2: K4 == plain at every T (max |diff| 0, "
             f"{time.perf_counter() - t0:.2f} s)")
     return max_err
 
@@ -1148,18 +1198,18 @@ def phase_single_timing(dev, card):
     nbytes = 4 * (t.numel() + tl.numel() + q.numel() + B + 32 * 32)
     ops = cells * OPS_PER_CELL["SW"]
     bound_ms, bound_by = _bound(nbytes, ops)
+    T, block = sw_grouped.launch_geometry(1, B, N, dev)
+    per_cell = tiled_bytes_per_cell(T, code_bytes=4)
     say(f"[9b] K4 B={B} N={N} m={m} ({cells / 1e9:.2f} G cells), {card}: kernel {ms:.3f} ms = "
-        f"{cells / ms / 1e6:.2f} GCUPS; plain {plain_ms:.3f} ms; bound {bound_ms:.3f} ms "
-        f"({bound_by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s, {ops / 1e9:.2f} G int32 ops at "
-        f"{INT32['ops_per_s'] / 1e12:.3f} T/s); design bound (serial body, "
-        f"{K4_BYTES_PER_CELL} B/cell at 3.35 TB/s) "
-        f"{cells * K4_BYTES_PER_CELL / HBM_BYTES_PER_S * 1e3:.3f} ms; kernel == plain "
-        f"(max |diff| 0)")
+        f"{cells / ms / 1e6:.2f} GCUPS at (T, block) = ({T}, {block}); plain {plain_ms:.3f} ms; "
+        f"bound {bound_ms:.3f} ms ({bound_by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s, "
+        f"{ops / 1e9:.2f} G int32 ops at {INT32['ops_per_s'] / 1e12:.3f} T/s; the kernel at "
+        f"{100 * bound_ms / ms:.1f} % of it); design bound ({per_cell:.4f} B/cell at 3.35 TB/s) "
+        f"{cells * per_cell / HBM_BYTES_PER_S * 1e3:.3f} ms; kernel == plain (max |diff| 0)")
     if PARENT["k"]:
         par, this = parent_turns("9b", f"K4 at B={B} N={N} m={m}", kernel,
                                  lambda: PARENT["k"].k4(q, m, t, tl, m32), 10, card, cells)
-        check(abs(this - par) <= 0.03 * par, f"K4 moved {100 * (this / par - 1):+.2f} % from "
-                                             f"the parent's (the serial body is unchanged)")
+        check(this < par, f"K4 ({this:.3f} ms) is not faster than the parent's ({par:.3f} ms)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, work=(nbytes, ops))
 
 
@@ -1386,6 +1436,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         PARENT["k"] = load_parent(parent)
         say(f"[1] the parent's kernels from {parent} built in {time.perf_counter() - t0:.2f} s")
+        sass_against_parent()
 
     dev = torch.device("cuda", 0)
     err_k1 = run_phase("2", phase_parity, dev)

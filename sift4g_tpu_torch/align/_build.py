@@ -103,6 +103,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp, vp, vp,               # targets, lens, matrix32
         i32, i32,                 # B, N
         i32, i32, i32,            # mode, go, ge
+        i32, i32,                 # threads per target, block
         vp, vp, vp,               # scratch, out, stream
     ]
     lib.sift4g_dp_row_probe.restype = i32
@@ -114,7 +115,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sift4g_int32_probe.restype = i32
     lib.sift4g_int32_probe.argtypes = [
         i32, i32, i32, i32,       # B, N, M, salt
-        i32, i32,                 # pairs, dpx
+        i32,                      # pairs
         vp, vp,                   # out, stream
     ]
     return lib

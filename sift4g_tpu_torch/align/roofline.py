@@ -167,9 +167,8 @@ def dp_row_probe(m, salt, *, B=1024, N=512, go=10, ge=1, device="cuda", out=None
 # ---------------------------------------------------------------- K6
 
 
-def int32_probe_plain(m, salt, *, B=1024, N=512, pairs=1, dpx=False, device="cpu"):
-    """(B,) int32 in plain PyTorch.  ``dpx`` picks the kernel's form of
-    the update only; the function is the same."""
+def int32_probe_plain(m, salt, *, B=1024, N=512, pairs=1, device="cpu"):
+    """(B,) int32 in plain PyTorch."""
     dev = torch.device(device)
     i32 = torch.int32
     p = torch.arange(pairs, dtype=i32, device=dev)[:, None, None]
@@ -181,10 +180,9 @@ def int32_probe_plain(m, salt, *, B=1024, N=512, pairs=1, dpx=False, device="cpu
     return torch.maximum(a, b).amax(dim=(0, 2))
 
 
-def int32_probe(m, salt, *, B=1024, N=512, pairs=1, dpx=False, device="cuda", out=None):
-    """(B,) int32: each row's maximum after ``m`` rounds (K6); ``dpx``
-    writes the update with ``__viaddmax_s32``.  On a CUDA device it
-    launches the kernel, into ``out`` when given."""
+def int32_probe(m, salt, *, B=1024, N=512, pairs=1, device="cuda", out=None):
+    """(B,) int32: each row's maximum after ``m`` rounds (K6).  On a CUDA
+    device it launches the kernel, into ``out`` when given."""
     dev = _device(device)
     m, salt = int(m), int(salt)
     _check_args("int32_probe", m, salt, B, N)
@@ -193,7 +191,7 @@ def int32_probe(m, salt, *, B=1024, N=512, pairs=1, dpx=False, device="cuda", ou
     if out is not None:
         _check_out("int32_probe", out, B, dev)
     if dev.type == "cpu":
-        res = int32_probe_plain(m, salt, B=B, N=N, pairs=pairs, dpx=dpx, device=dev)
+        res = int32_probe_plain(m, salt, B=B, N=N, pairs=pairs, device=dev)
         return res if out is None else out.copy_(res)
     if dev.type != "cuda":
         raise ValueError(f"int32_probe runs on cpu or cuda, not {dev}")
@@ -202,8 +200,7 @@ def int32_probe(m, salt, *, B=1024, N=512, pairs=1, dpx=False, device="cuda", ou
         out = torch.empty(B, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.sift4g_int32_probe(B, N, m, salt, pairs, int(bool(dpx)),
-                                    out.data_ptr(), stream)
+        rc = lib.sift4g_int32_probe(B, N, m, salt, pairs, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"int32_probe kernel launch failed: CUDA error {rc}")
     global int32_launches
@@ -266,8 +263,7 @@ def dp_row_roofline(B=1024, N=512, go=10, ge=1, iters=6, lo=1_000, hi=4_000, dev
     }
 
 
-def int32_roofline(B=1024, N=512, iters=6, pairs=1, dpx=False, lo=None, hi=None,
-                   device="cuda"):
+def int32_roofline(B=1024, N=512, iters=6, pairs=1, lo=None, hi=None, device="cuda"):
     """The int32 probe's marginal rate on the card (K6): 4 operations per
     element, pair and round (two adds, two maxes, as ``bench_ab.py:144``
     counts them).  ``lo``/``hi`` default to the JAX rounds, 25,000 and
@@ -280,7 +276,7 @@ def int32_roofline(B=1024, N=512, iters=6, pairs=1, dpx=False, lo=None, hi=None,
     out = torch.empty(B, dtype=torch.int32, device=dev)
 
     def call(m, salt):
-        int32_probe(m, salt, B=B, N=N, pairs=pairs, dpx=dpx, device=dev, out=out)
+        int32_probe(m, salt, B=B, N=N, pairs=pairs, device=dev, out=out)
 
     compile_s, t_lo, t_hi = _differential(call, lo, hi, iters, dev)
     return {
@@ -331,7 +327,7 @@ _FUNC = re.compile(r"Function\s*:\s*")
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _PRED = re.compile(r"^@!?U?P[T0-9]+\s+")
 _ADDR = re.compile(r"0x([0-9a-f]+)")
-_K6_NAME = re.compile(r"int32_probe_kernelILi(\d+)ELb([01])E")
+_K6_NAME = re.compile(r"int32_probe_kernelILi(\d+)E")
 MAX_OPCODES = ("IMNMX", "VIMNMX", "VIADDMNMX", "VIMNMX3")
 
 
@@ -366,23 +362,37 @@ def sass_loops(text: str) -> dict:
     return funcs
 
 
-def int32_probe_sass():
-    """{(pairs, dpx): (loop opcode Counter, rounds per loop pass,
-    instructions per element, pair and round)} of K6's variants, read
-    with ``cuobjdump -sass`` from the built library; None without
-    ``cuobjdump``."""
+def sass_instructions(text: str) -> dict:
+    """{function: its instructions, as text} from the output of
+    ``cuobjdump -sass``."""
+    return {chunk.split(None, 1)[0]: [m.group(2) for m in _INSN.finditer(chunk)]
+            for chunk in _FUNC.split(text)[1:]}
+
+
+def library_sass(path=None):
+    """``cuobjdump -sass`` of the built kernel library (or of the library
+    at ``path``); None without ``cuobjdump``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
-    text = subprocess.run([tool, "-sass", _build.library_path()], capture_output=True,
+    return subprocess.run([tool, "-sass", path or _build.library_path()], capture_output=True,
                           text=True, check=True).stdout
+
+
+def int32_probe_sass():
+    """{pairs: (loop opcode Counter, rounds per loop pass, instructions
+    per element, pair and round)} of K6's variants, read with ``cuobjdump
+    -sass`` from the built library; None without ``cuobjdump``."""
+    text = library_sass()
+    if text is None:
+        return None
     out = {}
     for fn, ops in sass_loops(text).items():
         m = _K6_NAME.search(fn)
         if not m:
             continue
-        pairs, dpx = int(m.group(1)), m.group(2) == "1"
+        pairs = int(m.group(1))
         rounds = _n_max(ops) / (2 * pairs)
         per = sum(ops.values()) / (rounds * pairs) if rounds else None
-        out[(pairs, dpx)] = (ops, rounds, per)
+        out[pairs] = (ops, rounds, per)
     return out

@@ -11,11 +11,11 @@ the device of their tensors: CPU tensors go to the plain PyTorch versions
 ``csrc/sw_single.cu``, built on first use.  A CUDA call launches the
 kernel or raises; there is no fallback to the plain version.
 
-K1 and K3 run the tiled body of ``csrc/sw_tiled.cuh``: T threads score
-one target, each holding ``TILE_ROWS`` query rows.  ``tile_geometry``
-picks T and the block from the launch's shape and the card's SM count;
-``threads_per_target=`` forces T (tests and ``chip_smoke.py`` run every
-value).  K4 keeps the serial body of ``csrc/sw_grouped.cuh``.
+K1, K3 and K4 run the tiled body of ``csrc/sw_tiled.cuh``: T threads
+score one target, each holding ``TILE_ROWS`` query rows.
+``tile_geometry`` picks T and the block from the launch's shape and the
+card's SM count (K4's launch is one group, G = 1); ``threads_per_target=``
+forces T (tests and ``chip_smoke.py`` run every value).
 
 Counters (plain integers a run reads to show which path it took):
 ``kernel_launches`` counts K1 launches made here, ``resident_launches``
@@ -80,7 +80,7 @@ def _threads_checked(threads_per_target):
 
 
 def tile_geometry(G: int, B: int, N: int, sm_count: int, threads_per_target=None):
-    """(T, block): threads per target and threads per block of a K1/K3
+    """(T, block): threads per target and threads per block of a K1/K3/K4
     launch of G groups of B targets on an N-wide rung, on a card of
     ``sm_count`` SMs.
 
@@ -267,12 +267,16 @@ def sw_scores_single(
     mode: str = "SW",
     gap_open: int = 10,
     gap_extend: int = 1,
+    threads_per_target: int | None = None,
 ) -> torch.Tensor:
     """Scores (B,) int32 of the query ``query_codes[:query_len]`` against
     each ``targets[b, :target_lens[b]]``.  A tensor ``query_len`` is read
-    on the card, so a caller holding it there never waits for the host."""
+    on the card, so a caller holding it there never waits for the host.
+    ``threads_per_target`` forces the kernel's T, as for
+    :func:`sw_scores_grouped`."""
     if mode not in MODE_IDS:
         raise ValueError(f"unknown alignment mode {mode!r}")
+    _threads_checked(threads_per_target)
     dev = targets.device
     if dev.type == "cpu":
         return scan.align_scores(
@@ -291,15 +295,17 @@ def sw_scores_single(
     _check("target_lens", target_lens, torch.int32, (B,), dev)
     _check("matrix32", matrix32, torch.int32, (32, 32), dev)
 
+    T, block = launch_geometry(1, B, N, dev, threads_per_target)
     lib = _build.load()
     out = torch.empty(B, dtype=torch.int32, device=dev)
+    # the tiled body's [g][j][b] scratch at G = 1
     scratch = torch.empty((N, B, 2), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sift4g_sw_single(
             query_codes.data_ptr(), query_codes.shape[0], query_len.data_ptr(),
             targets.data_ptr(), target_lens.data_ptr(), matrix32.data_ptr(),
-            B, N, MODE_IDS[mode], int(gap_open), int(gap_extend),
+            B, N, MODE_IDS[mode], int(gap_open), int(gap_extend), T, block,
             scratch.data_ptr(), out.data_ptr(), stream,
         )
     if rc != 0:

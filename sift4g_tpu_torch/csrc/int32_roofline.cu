@@ -9,11 +9,10 @@
 // run_roofline exactly; the plain PyTorch version is in
 // sift4g_tpu_torch/align/roofline.py.
 //
-// The update is written either plainly, max(x + c, y), or with the DPX
-// intrinsic __viaddmax_s32(x, c, y).  One kernel, templated on PAIRS (1, 2
-// or 4) and on the form.  nvcc 12.8 fuses the plain form into the DPX
-// instruction VIADDMNMX by itself on sm_90a: both forms compile to the
-// same loop (cuobjdump -sass), and nothing here forces them apart.
+// The update is written plainly, max(x + c, y): nvcc 12.8 fuses it into
+// the DPX instruction VIADDMNMX by itself on sm_90a (cuobjdump -sass), so
+// the intrinsic __viaddmax_s32 would compile to the same loop.  One
+// kernel, templated on PAIRS (1, 2 or 4).
 //
 // What bounds it on the card: the integer pipes alone.  The state lives
 // in registers (no memory traffic in the loop), so the rate is the rate
@@ -37,16 +36,7 @@ namespace {
 
 constexpr int kMaxThreads = 512;
 
-template <bool DPX>
-__device__ __forceinline__ int add_max(int x, int c, int y) {
-  if constexpr (DPX) {
-    return __viaddmax_s32(x, c, y);
-  } else {
-    return max(x + c, y);
-  }
-}
-
-template <int PAIRS, bool DPX>
+template <int PAIRS>
 __global__ void __launch_bounds__(kMaxThreads) int32_probe_kernel(
     int N, int M, int salt, int32_t* __restrict__ out) {
   const int row = blockIdx.x;
@@ -62,8 +52,8 @@ __global__ void __launch_bounds__(kMaxThreads) int32_probe_kernel(
     for (int r = 0; r < M; ++r) {
 #pragma unroll
       for (int p = 0; p < PAIRS; ++p) {
-        const int na = add_max<DPX>(a[p], 1, b[p]);
-        b[p] = add_max<DPX>(b[p], -1, a[p]);
+        const int na = max(a[p] + 1, b[p]);
+        b[p] = max(b[p] - 1, a[p]);
         a[p] = na;
       }
     }
@@ -90,20 +80,17 @@ __global__ void __launch_bounds__(kMaxThreads) int32_probe_kernel(
 // C entry for ctypes.  Launches on `stream`; neither synchronises nor
 // allocates; returns cudaGetLastError().
 extern "C" int sift4g_int32_probe(int B, int N, int M, int salt, int pairs,
-                                  int dpx, int32_t* out, void* stream) {
+                                  int32_t* out, void* stream) {
   if (B <= 0 || N <= 0 || M < 0) return static_cast<int>(cudaErrorInvalidValue);
   // a multiple of the warp, so that every lane joins the reductions
   const int threads = N >= sift4g::kMaxThreads ? sift4g::kMaxThreads : (N + 31) / 32 * 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SIFT4G_LAUNCH(P, D) \
-  sift4g::int32_probe_kernel<P, D><<<B, threads, 0, s>>>(N, M, salt, out)
-  switch (pairs * 2 + (dpx ? 1 : 0)) {
-    case 2: SIFT4G_LAUNCH(1, false); break;
-    case 3: SIFT4G_LAUNCH(1, true); break;
-    case 4: SIFT4G_LAUNCH(2, false); break;
-    case 5: SIFT4G_LAUNCH(2, true); break;
-    case 8: SIFT4G_LAUNCH(4, false); break;
-    case 9: SIFT4G_LAUNCH(4, true); break;
+#define SIFT4G_LAUNCH(P) \
+  sift4g::int32_probe_kernel<P><<<B, threads, 0, s>>>(N, M, salt, out)
+  switch (pairs) {
+    case 1: SIFT4G_LAUNCH(1); break;
+    case 2: SIFT4G_LAUNCH(2); break;
+    case 4: SIFT4G_LAUNCH(4); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef SIFT4G_LAUNCH

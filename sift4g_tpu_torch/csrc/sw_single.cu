@@ -12,24 +12,31 @@
 // planes are, and a zero-length row scoring 0 under SW/OV and NEG under
 // NW/HW.
 //
-// The kernel body is K1's (sw_grouped.cuh) at G = 1, with the Int32Rows
-// loader: up to four int4 loads for the next 16 codes of a row, single
-// loads at its tail.  Bound: K1's 16 B/cell of H/F scratch traffic plus 4
-// B/cell of int32 codes (re-read once per query row), about 20 B/cell at
-// 3.35 TB/s.  Not carried over from the TPU kernel: the (26, B, N) int8
-// substitution planes and the log2(N) roll prefix max along the row, which
-// fit Mosaic's vector unit; a CUDA thread runs the row serially instead.
+// The kernel body is K1's tiled one (sw_tiled.cuh) at G = 1: T threads per
+// target (chosen by the host from the launch's shape), 16 query rows a
+// thread in registers, the query profile in shared memory, and the H/F
+// scratch touched only between passes of 16 T rows.  The Int32Rows loader
+// (sw_grouped.cuh) gives the body 4 codes at a time, packed into the bytes
+// K1 reads: one int4 load where the row is aligned and the 4 codes lie
+// inside it, single loads at its tail, never a read at or past its length.
+// Bound: the int32 issue rate, as K1 (about eight instructions per cell);
+// device memory carries (16 + 4) / (16 T) bytes per cell, the 4 bytes of an
+// int32 code read once per pass (0.157 B/cell at T = 8).  Not carried over
+// from the TPU kernel: the (26, B, N) int8 substitution planes and the
+// log2(N) roll prefix max along the row, which fit Mosaic's vector unit.
 
-#include "sw_grouped.cuh"
+#include "sw_tiled.cuh"
 
 // C entry for ctypes.  scratch holds N * B int2.
 extern "C" int sift4g_sw_single(
     const int32_t* q, int qm, const int32_t* qlen, const int32_t* targets,
     const int32_t* lens, const int32_t* matrix32, int B, int N, int mode,
-    int go, int ge, void* scratch, int32_t* out, void* stream) {
+    int go, int ge, int threads_per_target, int block, void* scratch,
+    int32_t* out, void* stream) {
   const bool vec4 = N % 4 == 0 && reinterpret_cast<uintptr_t>(targets) % 16 == 0;
-  return sift4g::launch_sw_grouped(q, qm, nullptr, qlen,
-                                   sift4g::Int32Rows{targets, vec4}, lens,
-                                   matrix32, 1, B, N, mode, go, ge, scratch,
-                                   out, stream);
+  return sift4g::launch_sw_tiled(q, qm, nullptr, qlen,
+                                 sift4g::Int32Rows{targets, vec4}, lens,
+                                 matrix32, 1, B, N, mode, go, ge,
+                                 threads_per_target, block, scratch, out,
+                                 stream);
 }

@@ -1,14 +1,16 @@
 // Grouped affine-gap alignment scores (SW / NW / HW / OV) for Hopper, tiled:
-// the kernel body of K1 (sw_grouped.cu, target slabs) and K3
-// (sw_grouped_resident.cu, the device-resident database).  It replaces the
-// one-thread-per-target serial body of sw_grouped.cuh for them (K4 keeps
-// that one) and takes its row policies (SlabRows, ResidentRows) and Mode.
+// the kernel body of K1 (sw_grouped.cu, target slabs), K3
+// (sw_grouped_resident.cu, the device-resident database) and K4
+// (sw_single.cu, one query against int32 target rows).  It takes its row
+// policies (SlabRows, ResidentRows, Int32Rows) and Mode from sw_grouped.cuh.
 //
 // Group g scores the query q_all[q_off[g] : q_off[g] + q_len[g]] against
-// its B targets; the result is (G, B) int32, bit-identical to the Pallas
-// kernel sift4g_tpu/align/pallas_sw.py:_sw_grouped_kernel (and to the plain
-// PyTorch version in sift4g_tpu_torch/align/scan.py): the same recurrence
-// as the serial body, cell for cell,
+// its B targets (a policy that is not `grouped` has one query, at offset
+// 0, and q_off is not read); the result is (G, B) int32, bit-identical to
+// the Pallas kernels sift4g_tpu/align/pallas_sw.py:_sw_grouped_kernel and
+// _sw_kernel (and to the plain PyTorch version in
+// sift4g_tpu_torch/align/scan.py): the serial Gotoh recurrence, cell for
+// cell,
 //   F = max(H_up - go, F_up - ge)
 //   G = max(diag + s, F)            (and 0 under SW)
 //   E = max(E_left - ge, G_left - go)
@@ -25,7 +27,7 @@
 // received the step before.  F runs down the thread's rows in registers.
 // A query longer than T * kRows rows takes several passes: the group's
 // last thread writes the (H, F) of its last row per column to the scratch
-// ([g][j][b], as the serial body's), and the next pass's first thread
+// ([g][j][b]: a warp's targets side by side), and the next pass's first thread
 // reads it back.  The top boundary row and the left boundary column are
 // computed, never stored.
 //
@@ -39,9 +41,10 @@
 // thread that holds it, by predicates, once the sweep is done.
 //
 // What bounds it on the card.  Device memory: one pass reads 1 byte of
-// target per column and, between passes, writes and reads 16 bytes of
-// (H, F) per column: (16 + 1) / (T * kRows) bytes per cell, and only the
-// target's 1 / (T * kRows) when one pass covers the query.  At 3.35 TB/s
+// target per column (4 for K4's int32 codes) and, between passes, writes
+// and reads 16 bytes of (H, F) per column: (16 + 1) / (T * kRows) bytes per
+// cell ((16 + 4) / (T * kRows) for K4), and only the target's bytes over
+// T * kRows when one pass covers the query.  At 3.35 TB/s
 // (1.06 B/cell at T = 1: 3.2 T cells/s; 17x less at T = 16) that is above the
 // int32 issue rate, so the design is bound by operations: about eight
 // int32 instructions per cell (four max-type, and the byte unpack), against
@@ -53,8 +56,9 @@
 // Contract (checked by the Python wrappers): T is a power of two <= 32
 // that divides blockDim.x, a multiple of 32 no larger than kTileBlock; a
 // row's codes at j >= len may hold anything and are never read as matrix
-// indices (only their low five bits are used).  Lengths are clamped to
-// [0, N] and query spans to the query buffer, for memory safety only.
+// indices (only their low five bits are used; each policy's load4 says
+// how far it reads).  Lengths are clamped to [0, N] and query spans to the
+// query buffer, for memory safety only.
 
 #pragma once
 
@@ -77,14 +81,6 @@ __device__ __forceinline__ int sext_byte(uint32_t w) {
       : "=r"(r)
       : "r"(w), "r"(0u), "r"(k | (n << 4) | (n << 8) | (n << 12)));
   return r;
-}
-
-// The next 4 codes of a row from column jc (a multiple of 4): K1's and K3's
-// rows start 16-byte aligned and are readable up to their length rounded
-// up to 16.
-template <class Row>
-__device__ __forceinline__ uint32_t load4(Row r, int jc) {
-  return reinterpret_cast<const uint32_t*>(r)[jc >> 2];
 }
 
 template <int MODE, class Rows>
@@ -112,7 +108,7 @@ __global__ void __launch_bounds__(kTileBlock) sw_tiled_kernel(
     len = min(max(lens[gb], 0), N);
     row = rows.row(gb, N, len);
   }
-  const int off = min(max(q_off[g], 0), qm);
+  const int off = Rows::grouped ? min(max(q_off[g], 0), qm) : 0;
   const int qlen = min(max(q_len[g], 0), qm - off);
   const int32_t* q = q_all + off;
   int2* hf = scratch + (size_t)g * N * B + b;  // hf[j * B] = (H, F)
@@ -169,7 +165,7 @@ __global__ void __launch_bounds__(kTileBlock) sw_tiled_kernel(
 #pragma unroll
     for (int k = 0; k < 4; ++k) pf[k] = make_int2(0, kNeg);
     if (t == 0 && len > 0) {
-      wn = load4(row, 0);
+      wn = rows.load4(row, 0, len);
       if (!first) {
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
@@ -180,7 +176,7 @@ __global__ void __launch_bounds__(kTileBlock) sw_tiled_kernel(
 
     for (int s0 = 0; s0 < nsteps; s0 += 4) {
       const uint32_t w = wn;
-      if (t == 0 && s0 + 4 < len) wn = load4(row, s0 + 4);
+      if (t == 0 && s0 + 4 < len) wn = rows.load4(row, s0 + 4, len);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int s = s0 + k;

@@ -7,13 +7,12 @@ The twin of ``tools/bench_ab.py``; one subcommand per process, each
 printing one JSON line per measurement:
 
 * ``roofline``, ``roofline2``, ``roofline4``: K6 (``align/roofline.py``)
-  with 1, 2 and 4 independent (a, b) pairs per element, in both forms of
-  the update (written plainly and with the DPX ``__viaddmax_s32``; nvcc
-  compiles both to ``VIADDMNMX`` on sm_90a): the
-  marginal int32 rate at 25,000 and 100,000 rounds (divided by the
-  pairs), 4 operations per element and round, beside the card's peak
-  int32 rate (``roofline.int32_peak_rate``) and the instructions per
-  second read from the loop's SASS;
+  with 1, 2 and 4 independent (a, b) pairs per element (nvcc compiles
+  the update to ``VIADDMNMX`` on sm_90a): the marginal int32 rate at
+  25,000 and 100,000 rounds (divided by the pairs), 4 operations per
+  element and round, beside the card's peak int32 rate
+  (``roofline.int32_peak_rate``) and the instructions per second read
+  from the loop's SASS;
 * ``dprow``: K5, the row engine's marginal cell rate at the JAX shape;
 * ``native``: the port's threaded native C++ DP at the bench shape on the
   host (the CPU baseline);
@@ -54,30 +53,25 @@ def _card_fields():
 
 
 def run_roofline(pairs=1, B=1024, N=512, iters=6, device="cuda"):
-    """K6 in both forms: one record per form."""
+    """K6's marginal rate with ``pairs`` chains: one record."""
     from ..align import roofline
 
     dev = roofline.require_cuda(device)
     peak, how = roofline.int32_peak_rate(dev)
-    records = []
-    for dpx in (False, True):
-        res = roofline.int32_roofline(B=B, N=N, iters=iters, pairs=pairs, dpx=dpx, device=dev)
-        form = "dpx" if dpx else "plain"
-        records.append({
-            "metric": f"int32_tops_marginal[pairs{pairs},{form}]",
-            **res,
-            "peak_tops": peak / 1e12,
-            "peak_src": how,
-            **_card_fields(),
-        })
+    res = roofline.int32_roofline(B=B, N=N, iters=iters, pairs=pairs, device=dev)
     sass = roofline.int32_probe_sass()
+    per = sass.get(pairs, (None, None, None))[2] if sass else None
     lo, hi = 25_000 // pairs, 100_000 // pairs
-    for rec, dpx in zip(records, (False, True)):
-        per = sass.get((pairs, dpx), (None, None, None))[2] if sass else None
-        rec["insns_per_element_round"] = per
-        rec["instr_per_s"] = (per * pairs * B * N * (hi - lo) / (rec["t_hi_s"] - rec["t_lo_s"])
-                              if per else None)
-    return records
+    return {
+        "metric": f"int32_tops_marginal[pairs{pairs}]",
+        **res,
+        "peak_tops": peak / 1e12,
+        "peak_src": how,
+        "insns_per_element_round": per,
+        "instr_per_s": (per * pairs * B * N * (hi - lo) / (res["t_hi_s"] - res["t_lo_s"])
+                        if per else None),
+        **_card_fields(),
+    }
 
 
 def run_dprow(B=1024, N=512, go=10, ge=1, iters=6, device="cuda"):
@@ -150,8 +144,7 @@ def main(argv=None) -> int:
         return 1
     finally:
         signal.alarm(0)
-    for rec in result if isinstance(result, list) else [result]:
-        print(json.dumps(rec), flush=True)
+    print(json.dumps(result), flush=True)
     return 0
 
 

@@ -1,9 +1,9 @@
 """The CUDA kernels (K1 on slabs, K3 on the resident database, K4 on
 int32 rows, the probes K5 and K6) against their plain PyTorch versions,
-and the sharded factories on two shards of the card, on the card.  K1 and
-K3 run at every forced ``threads_per_target`` of the tiled body, at the
-query lengths where its passes change and the target lengths where its
-column loads change.
+and the sharded factories on two shards of the card, on the card.  K1, K3
+and K4 run at every forced ``threads_per_target`` of the tiled body, at
+the query lengths where its passes change and the target lengths where
+its column loads change.
 
 These tests need a CUDA device and skip without one.  They import no JAX,
 so they run on a GPU host that has none:
@@ -200,14 +200,13 @@ def test_dp_row_probe_matches_plain(cuda, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dpx", [False, True], ids=["plain", "dpx"])
 @pytest.mark.parametrize("pairs", [1, 2, 4])
-def test_int32_probe_matches_plain(cuda, pairs, dpx):
+def test_int32_probe_matches_plain(cuda, pairs):
     from sift4g_tpu_torch.align import roofline
 
     launches = roofline.int32_launches
     for B, N, M, salt in [(1024, 512, 300, 3), (70, 37, 41, -5), (3, 1100, 9, 2)]:
-        got = roofline.int32_probe(M, salt, B=B, N=N, pairs=pairs, dpx=dpx, device=cuda)
+        got = roofline.int32_probe(M, salt, B=B, N=N, pairs=pairs, device=cuda)
         ref = roofline.int32_probe_plain(M, salt, B=B, N=N, pairs=pairs, device=cuda)
         torch.cuda.synchronize()
         assert got.dtype == torch.int32 and got.shape == (B,)
@@ -226,12 +225,13 @@ def test_resident_kernel_refuses_bad_window(cuda):
 
 
 def _single_inputs(seed, B, N, m_pad, qlen, dev):
-    """One query and B int32 rows of any width: ragged lengths, empty rows,
-    random codes 0..31 past every length."""
+    """One query and B int32 rows of any width: ragged lengths, empty rows
+    (the first row N long), and codes from the whole int32 range past every
+    length, so that a read past a length changes a score."""
     rng = np.random.default_rng(seed)
-    targets = rng.integers(0, 32, (B, N)).astype(np.int32)
+    targets = rng.integers(-2**31, 2**31, (B, N), dtype=np.int64).astype(np.int32)
     lens = rng.integers(0, N + 1, B).astype(np.int32)
-    lens[0], lens[-1] = N, 0
+    lens[-1], lens[0] = 0, N
     for b in range(B):
         targets[b, : lens[b]] = rng.integers(0, 26, lens[b])
     q = np.full(m_pad, 31, dtype=np.int32)
@@ -247,40 +247,45 @@ def _single_inputs(seed, B, N, m_pad, qlen, dev):
     ids=["ragged", "n200", "b1-n37", "8192-aa"],
 )
 def test_single_kernel_matches_plain(cuda, mode, shape):
+    """K4 at the geometry's own T and at every forced T; also with the
+    query length as a tensor on the card and a row base that is not
+    16-byte aligned (the kernel's scalar loads)."""
     B, N, m_pad, qlen = shape
     q, t, tl = _single_inputs(5, B, N, m_pad, qlen, cuda)
     m32 = scan.matrix32_from_scorer(_blosum62(), cuda)
-    launches = sw_grouped.single_launches
-    got = sw_grouped.sw_scores_single(q, qlen, t, tl, m32, mode=mode, gap_open=11, gap_extend=2)
-    ref = scan.align_scores(q, qlen, t, tl, m32, mode=mode, gap_open=11, gap_extend=2)
-    # the query length as a tensor on the card, and a row base that is not
-    # 16-byte aligned (the kernel's scalar loads)
+    kw = dict(mode=mode, gap_open=11, gap_extend=2)
+    ref = scan.align_scores(q, qlen, t, tl, m32, **kw)
     ql = torch.tensor([qlen], dtype=torch.int32, device=cuda)
     t_off = torch.empty(B * N + 1, dtype=torch.int32, device=cuda)[1:].view(B, N)
     t_off.copy_(t)
-    got2 = sw_grouped.sw_scores_single(q, ql, t_off, tl, m32, mode=mode, gap_open=11,
-                                       gap_extend=2)
-    torch.cuda.synchronize()
-    assert sw_grouped.single_launches == launches + 2
-    assert got.dtype == torch.int32 and got.shape == (B,)
-    assert torch.equal(got, ref) and torch.equal(got2, ref)
+    launches = sw_grouped.single_launches
+    for T in (None, *GROUP_THREADS):
+        got = sw_grouped.sw_scores_single(q, qlen, t, tl, m32, threads_per_target=T, **kw)
+        got2 = sw_grouped.sw_scores_single(q, ql, t_off, tl, m32, threads_per_target=T, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and got.shape == (B,)
+        assert torch.equal(got, ref) and torch.equal(got2, ref), f"T={T}"
+    assert sw_grouped.single_launches == launches + 2 * (1 + len(GROUP_THREADS))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", MODES)
 def test_single_kernel_at_the_edge_lengths(cuda, mode):
-    """K4 (the serial body) at the tiled body's edge query lengths and at
-    target lengths 0, 1, 15, 16, 17 and N, gaps 11/2."""
+    """K4 at every pass boundary of every T (query lengths T x 16 - 1,
+    T x 16, T x 16 + 1), an empty query, one row and 8,192 rows, and at
+    target lengths 0, 1, 15, 16, 17 and N, gaps 11/2, at the geometry's
+    own T and at every forced T."""
     N = 200
     q, t, tl = _single_inputs(21, 64, N, 8192, 8192, cuda)
     tl[:6] = torch.tensor([0, 1, 15, 16, 17, N], dtype=torch.int32, device=cuda)
     m32 = scan.matrix32_from_scorer(_blosum62(), cuda)
-    for qlen in (0, 1, 15, 16, 17, 511, 512, 513, 8192):
-        got = sw_grouped.sw_scores_single(q, qlen, t, tl, m32, mode=mode, gap_open=11,
-                                          gap_extend=2)
-        ref = scan.align_scores(q, qlen, t, tl, m32, mode=mode, gap_open=11, gap_extend=2)
-        torch.cuda.synchronize()
-        assert torch.equal(got, ref), f"qlen={qlen}"
+    kw = dict(mode=mode, gap_open=11, gap_extend=2)
+    for qlen in EDGE_QLENS:
+        ref = scan.align_scores(q, qlen, t, tl, m32, **kw)
+        for T in (None, *GROUP_THREADS):
+            got = sw_grouped.sw_scores_single(q, qlen, t, tl, m32, threads_per_target=T, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), f"qlen={qlen} T={T}"
 
 
 @pytest.mark.gpu

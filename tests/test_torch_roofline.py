@@ -129,10 +129,9 @@ def test_int32_plain_matches_run_roofline(monkeypatch, case):
     ref = _run_captured(real, cap, M, salt)
     if (B, N, M, salt) == (8, 16, 7, 3):
         assert (ref == 25).all()
-    for dpx in (False, True):
-        got = roofline.int32_probe_plain(M, salt, B=B, N=N, pairs=1, dpx=dpx)
-        assert got.dtype == torch.int32 and got.shape == (B,)
-        np.testing.assert_array_equal(got.numpy(), ref)
+    got = roofline.int32_probe_plain(M, salt, B=B, N=N, pairs=1)
+    assert got.dtype == torch.int32 and got.shape == (B,)
+    np.testing.assert_array_equal(got.numpy(), ref)
     if B > N + 2 * salt + M:
         assert len(np.unique(ref)) > 1
 
@@ -145,9 +144,8 @@ def test_int32_plain_matches_run_roofline_ilp(monkeypatch, pairs, case):
     ref = _run_captured(real, cap, M, salt)
     if (B, N, M, salt, pairs) == (8, 16, 7, 3, 2):
         assert (ref == 26).all()
-    for dpx in (False, True):
-        got = roofline.int32_probe_plain(M, salt, B=B, N=N, pairs=pairs, dpx=dpx)
-        np.testing.assert_array_equal(got.numpy(), ref)
+    got = roofline.int32_probe_plain(M, salt, B=B, N=N, pairs=pairs)
+    np.testing.assert_array_equal(got.numpy(), ref)
 
 
 def test_wrappers_on_cpu_run_the_plain_versions():
@@ -158,7 +156,7 @@ def test_wrappers_on_cpu_run_the_plain_versions():
     assert roofline.dp_row_probe(12, 5, B=3, N=40, go=11, ge=2, device="cpu", out=out) is out
     assert torch.equal(out, got)
     for pairs in roofline.INT32_PAIRS:
-        got = roofline.int32_probe(9, -2, B=20, N=8, pairs=pairs, dpx=True, device="cpu")
+        got = roofline.int32_probe(9, -2, B=20, N=8, pairs=pairs, device="cpu")
         assert torch.equal(got, roofline.int32_probe_plain(9, -2, B=20, N=8, pairs=pairs))
     # the CPU never counts as a launch
     assert (roofline.dp_row_launches, roofline.int32_launches) == before
@@ -206,7 +204,7 @@ def test_timing_entry_points_refuse_the_cpu(monkeypatch):
 # branch to itself
 _SASS = """
 	code for sm_90a
-		Function : _ZN6sift4g12_GLOBAL__N_118int32_probe_kernelILi2ELb1EEEviiiPi
+		Function : _ZN6sift4g12_GLOBAL__N_118int32_probe_kernelILi2EEEviiiPi
 	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
         /*0000*/                   LDC R1, c[0x0][0x28] ;                   /* 0x00000a00ff017b82 */
                                                                             /* 0x000fe40000000800 */
@@ -228,8 +226,13 @@ _SASS = """
 
 def test_sass_loop_parser():
     loops = roofline.sass_loops(_SASS)
-    k6 = loops["_ZN6sift4g12_GLOBAL__N_118int32_probe_kernelILi2ELb1EEEviiiPi"]
+    k6 = loops["_ZN6sift4g12_GLOBAL__N_118int32_probe_kernelILi2EEEviiiPi"]
     assert k6 == {"VIADDMNMX": 2, "VIADD": 1, "ISETP": 1, "BRA": 1}
     assert sum(loops["_ZN6sift4g12_GLOBAL__N_119dp_row_probe_kernelEiiiiiiP4int2Pi"].values()) == 0
     m = roofline._K6_NAME.search(next(iter(loops)))
-    assert (int(m.group(1)), m.group(2)) == (2, "1")
+    assert int(m.group(1)) == 2
+    insns = roofline.sass_instructions(_SASS)
+    assert list(insns) == list(loops)
+    assert insns["_ZN6sift4g12_GLOBAL__N_118int32_probe_kernelILi2EEEviiiPi"][3] == (
+        "VIADDMNMX R4, R2, 0x1, R3, !PT")
+    assert insns["_ZN6sift4g12_GLOBAL__N_119dp_row_probe_kernelEiiiiiiP4int2Pi"] == ["EXIT"]

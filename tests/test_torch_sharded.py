@@ -45,12 +45,15 @@ def _t(*arrays):
     return [torch.from_numpy(np.asarray(a)) for a in arrays]
 
 
-def _single_inputs(rng, b, n, m_pad, qlen, min_len=0):
+def _single_inputs(rng, b, n, m_pad, qlen, min_len=0, fixed=None):
     """One query and b int32 target rows: ragged lengths (zero-length rows
-    unless ``min_len``), random codes 0..31 past every length."""
+    unless ``min_len``; the first rows ``fixed`` long when given), random
+    codes 0..31 past every length."""
     targets = rng.integers(0, 32, (b, n)).astype(np.int32)
     lens = rng.integers(min_len, n + 1, b).astype(np.int32)
-    if not min_len:
+    if fixed is not None:
+        lens[: len(fixed)] = fixed
+    elif not min_len:
         lens[:2] = (0, n)
     for i in range(b):
         targets[i, : lens[i]] = rng.integers(0, 26, lens[i])
@@ -62,30 +65,43 @@ def _single_inputs(rng, b, n, m_pad, qlen, min_len=0):
 # ---- K4's plain version against the Pallas kernel ---------------------------
 
 
+# (b, n, m_pad, query lengths, gaps, the first rows' lengths): the last
+# three sit at the edges of K4's tiled body: a pass boundary at T = 8
+# (128 rows), one row of 37 codes (the int32 loader's scalar tail, and no
+# row after it), and target lengths around the 4- and 16-column loads
+SINGLE_SHAPES = {
+    "b32-n128": (32, 128, 64, (57,), (10, 1), None),
+    "n200-gaps11-2": (8, 200, 32, (29,), (11, 2), None),
+    "qlen-127-128-129": (12, 96, 160, (127, 128, 129), (11, 2), None),
+    "b1-n37": (1, 37, 32, (30,), (11, 2), (37,)),
+    "target-lens-0-1-15-16-17-n": (8, 48, 32, (21,), (11, 2), (0, 1, 15, 16, 17, 48)),
+}
+
+
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize(
-    "shape", [(32, 128, 64, 57, 10, 1), (8, 200, 32, 29, 11, 2)], ids=["b32-n128", "n200-gaps11-2"]
-)
+@pytest.mark.parametrize("shape", SINGLE_SHAPES.values(), ids=SINGLE_SHAPES.keys())
 def test_single_plain_matches_pallas_interpret(mode, shape):
     """As tests/test_pallas_sw.py runs ``sw_scores_pallas``, with empty
     rows and garbage codes past every length; the wrapper on CPU tensors
     is the plain version and launches nothing."""
     from sift4g_tpu.align.pallas_sw import sw_scores_pallas
 
-    b, n, m_pad, qlen, go, ge = shape
-    q, targets, lens = _single_inputs(np.random.default_rng(11), b, n, m_pad, qlen)
+    b, n, m_pad, qlens, (go, ge), fixed = shape
+    rng = np.random.default_rng(11)
+    q, targets, lens = _single_inputs(rng, b, n, m_pad, max(qlens), fixed=fixed)
     kw = dict(mode=mode, gap_open=go, gap_extend=ge)
-    with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(sw_scores_pallas(q, np.int32(qlen), targets, lens, M32, **kw))
     sw_grouped.reset_counters()
     qt, tt, lt, mt = _t(q, targets, lens, M32)
-    got = sw_grouped.sw_scores_single(qt, qlen, tt, lt, mt, **kw)
-    assert got.dtype == torch.int32 and got.shape == (b,)
-    np.testing.assert_array_equal(got.numpy(), want)
-    # a tensor query length, as the sharded factories pass it
-    got_t = sw_grouped.sw_scores_single(qt, torch.tensor([qlen], dtype=torch.int32), tt, lt, mt,
-                                        **kw)
-    np.testing.assert_array_equal(got_t.numpy(), want)
+    for qlen in qlens:
+        with pltpu.force_tpu_interpret_mode():
+            want = np.asarray(sw_scores_pallas(q, np.int32(qlen), targets, lens, M32, **kw))
+        got = sw_grouped.sw_scores_single(qt, qlen, tt, lt, mt, **kw)
+        assert got.dtype == torch.int32 and got.shape == (b,)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"qlen={qlen}")
+        # a tensor query length, as the sharded factories pass it
+        got_t = sw_grouped.sw_scores_single(qt, torch.tensor([qlen], dtype=torch.int32), tt, lt,
+                                            mt, **kw)
+        np.testing.assert_array_equal(got_t.numpy(), want, err_msg=f"qlen={qlen}")
     assert sw_grouped.single_launches == 0 and sw_grouped.twin_calls_on_cuda == 0
 
 

@@ -1,4 +1,4 @@
-"""The launch geometry of the tiled K1/K3 body (``align/sw_grouped.py``
+"""The launch geometry of the tiled K1/K3/K4 body (``align/sw_grouped.py``
 ``tile_geometry``) and the wrappers' ``threads_per_target`` keyword, on the
 CPU.
 
@@ -79,6 +79,15 @@ def test_geometry_values_at_the_main_shapes():
     assert tile_geometry(2, 64, 16, H100_SMS) == (2, 32)
 
 
+def test_geometry_gives_k4_the_bench_launch_of_k1():
+    """K4's timed shape (one query, 65,536 targets of 512) has the cells of
+    K1's bench launch and gets the same launch; one row of 37 codes gets
+    T = 4 in one warp."""
+    assert tile_geometry(1, 65536, 512, H100_SMS) == tile_geometry(64, 1024, 512, H100_SMS)
+    assert tile_geometry(1, 65536, 512, H100_SMS) == (8, 128)
+    assert tile_geometry(1, 1, 37, H100_SMS) == (4, 32)
+
+
 def test_geometry_grows_with_the_card():
     """The same shape on a card with more SMs gets at least as many
     threads per target."""
@@ -108,6 +117,9 @@ def test_forced_threads_per_target_is_validated(bad):
     with pytest.raises(ValueError, match="threads_per_target"):
         sw_grouped.sw_scores_grouped_resident(q, o, ql, db, st, tl, m32, 32,
                                               threads_per_target=bad)
+    q, t, tl = _single(6, 5, 2, 32)
+    with pytest.raises(ValueError, match="threads_per_target"):
+        sw_grouped.sw_scores_single(q, 5, t, tl, m32, threads_per_target=bad)
 
 
 def _matrix():
@@ -161,9 +173,52 @@ def _resident(seed, qlens, B, N):
     return q, o, ql, rdb.dev, st, tl
 
 
+def _single(seed, qlen, B, N):
+    """K4's inputs: one query and B int32 rows of width N, target lengths
+    0, 1, 15, 16, 17 and N first, codes from the whole int32 range past
+    every length."""
+    rng = np.random.default_rng(seed)
+    q = np.full(qlen + 3, scan.PAD_CODE, dtype=np.int32)
+    q[:qlen] = rng.integers(0, 26, qlen)
+    targets = rng.integers(-2**31, 2**31, (B, N), dtype=np.int64).astype(np.int32)
+    lens = _edge_lens(rng, 1, B, N)[0]
+    for b in range(B):
+        targets[b, : lens[b]] = rng.integers(0, 26, lens[b])
+    return [torch.from_numpy(a) for a in (q, targets, lens)]
+
+
 # query lengths at the pass boundaries of T = 1 and T = 2 (16 and 32 rows
 # a pass), an empty query and one row
 EDGE_QLENS = (0, 1, 15, 16, 17, 33)
+
+
+@pytest.mark.parametrize("T", GROUP_THREADS)
+def test_single_on_cpu_accepts_every_threads_per_target(T):
+    """K4's wrapper takes every forced T; on CPU tensors it runs the plain
+    version, which ignores it, and launches nothing."""
+    sw_grouped.reset_counters()
+    m32 = _matrix()
+    q, t, tl = _single(7, 33, 8, 37)
+    for mode in MODES:
+        got = sw_grouped.sw_scores_single(q, 33, t, tl, m32, mode=mode, threads_per_target=T)
+        assert torch.equal(got, scan.align_scores(q, 33, t, tl, m32, mode=mode))
+    assert sw_grouped.single_launches == 0 and sw_grouped.twin_calls_on_cuda == 0
+
+
+def test_k4_runs_on_the_tiled_body():
+    """The serial body is gone: sw_grouped.cuh holds the row policies and
+    no kernel, and K4's C entry launches the tiled body."""
+    import os
+
+    from sift4g_tpu_torch.align import _build
+
+    with open(os.path.join(_build.CSRC, "sw_grouped.cuh")) as fh:
+        policies = fh.read()
+    with open(os.path.join(_build.CSRC, "sw_single.cu")) as fh:
+        single = fh.read()
+    assert "__global__" not in policies
+    assert all(f"struct {p}" in policies for p in ("SlabRows", "ResidentRows", "Int32Rows"))
+    assert "launch_sw_tiled(" in single and '#include "sw_tiled.cuh"' in single
 
 
 @pytest.mark.parametrize("T", [None, 1, 8, 32])
