@@ -35,8 +35,11 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    shape (G=64 groups, B=1024 targets of 512 residues, a 360-residue
    query);
 4. the port's CLI at Swiss-Prot scale (570,000 synthetic sequences, about
-   200 M residues; 50 queries with 20 substitutions each; default flags,
-   where ``--resident-db auto`` keeps the slab path at this query count)
+   200 M residues; 50 queries with 20 substitutions each; default flags
+   but ``--overlap off``, where ``--resident-db auto`` keeps the slab path
+   at this query count; every CLI run of phases 4, 4b and 9d names
+   ``--overlap off``, because ``auto`` may overlap on the host, and an
+   overlapped run never takes the resident path)
    with ``--backend cuda``, held byte for byte to ``--backend native``,
    and a matrix-mode pass on 5 queries held the same way.  K1's launch
    counter must show the main path went through it;
@@ -110,6 +113,24 @@ Phases, in order; the first failure ends the run with a non-zero exit:
        default flags and with ``--resident-db on``, and on a one-card host
        ``run_pipeline`` on ``[cuda:0, cuda:0]`` both ways; every output
        byte-identical to phase 4's ``--backend native``.
+10. (run after phase 9, on phase 4's database) device predict and the
+   overlapped schedule, which launch no kernel of their own.
+   10a. the float32 scoring math (``sift/scores_torch.py``) on the card
+       against its CPU run and the float64 oracle (rtol 2e-3, atol 2e-4;
+       the count of different letters exact) on the reference test's
+       shapes and a 64-query chunk of the predict mix; two card runs of
+       the chunk bit-identical, and the same bits with TF32 switched on
+       around the call;
+   10b. the 50-query CLI run with ``--predict-backend device`` (and
+       ``--overlap off``), byte-identical to phase 4's host-predict
+       outputs, with device predict seen running on the card;
+   10c. matrix mode on phase 4's 5 queries with device predict, twice:
+       the two runs bit-identical, every printed value within 1.5e-4 (a
+       printed digit) of phase 4's host oracle;
+   10d. ``--overlap on`` with host and with device predict, each
+       byte-identical to phase 4's two-phase outputs, on the slab path;
+       and whether ``--overlap auto`` overlaps on this host, with its
+       available cores.
 
 Each phase prints its seconds.  The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it the card's name and
@@ -736,11 +757,13 @@ def phase_main_path(tmp):
         os.mkdir(o)
     # native first: it also builds the parse cache both runs then read
     t0 = time.perf_counter()
-    _run_cli(["--backend", "native", "-q", q, "-d", db, "--subst", data, "--out", outs["native"]])
+    _run_cli(["--backend", "native", "--overlap", "off", "-q", q, "-d", db, "--subst", data,
+              "--out", outs["native"]])
     native_s = time.perf_counter() - t0
 
     _, _, counts, recorded = _counted_run(
-        ["--backend", "cuda", "-q", q, "-d", db, "--subst", data, "--out", outs["cuda"]],
+        ["--backend", "cuda", "--overlap", "off", "-q", q, "-d", db, "--subst", data,
+         "--out", outs["cuda"]],
         "4", record="sw_scores_grouped",
     )
     launches = counts["kernel_launches"]
@@ -759,11 +782,13 @@ def phase_main_path(tmp):
         fh.write("".join(">" + r for r in records))
     for b in ("native", "cuda"):
         os.mkdir(outs[b] + "-matrix")
-        _run_cli(["--backend", b, "-q", q5, "-d", db, "--out", outs[b] + "-matrix"])
+        _run_cli(["--backend", b, "--overlap", "off", "-q", q5, "-d", db,
+                  "--out", outs[b] + "-matrix"])
     n_mat = _same_tree(outs["cuda"] + "-matrix", outs["native"] + "-matrix", "matrix mode")
     say(f"[4] matrix mode, 5 queries: {n_mat} files byte-identical to --backend native")
     check(len(recorded) == launches, f"{len(recorded)} launches recorded, {launches} counted")
-    return SimpleNamespace(data=data, q=q, db=db, native_out=outs["native"],
+    return SimpleNamespace(data=data, q=q, db=db, native_out=outs["native"], q5=q5,
+                           native_matrix_out=outs["native"] + "-matrix",
                            launches=launches, recorded=recorded)
 
 
@@ -804,8 +829,8 @@ def phase_resident_path(main, tmp):
     os.mkdir(out_on)
     drop_resident_db()
     _, m_on, c_on, _ = _counted_run(
-        ["--backend", "cuda", "--resident-db", "on", "-q", main.q, "-d", main.db,
-         "--subst", main.data, "--out", out_on], "4b on")
+        ["--backend", "cuda", "--overlap", "off", "--resident-db", "on", "-q", main.q,
+         "-d", main.db, "--subst", main.data, "--out", out_on], "4b on")
     check(c_on["resident_launches"] > 0, "--resident-db on launched K3 no time")
     check(c_on["kernel_launches"] == 0, "--resident-db on still launched K1")
     check(c_on["twin_calls_on_cuda"] == 0, "--resident-db on called a plain version on CUDA")
@@ -820,7 +845,7 @@ def phase_resident_path(main, tmp):
     # their candidates (about 1.5 MB a query) outweigh the 0.2 GB slotted
     # database, so auto must take the resident path
     q300, subst300 = _write_query_set(main, tmp, 250, seed=7)
-    base = ["--backend", "cuda", "-q", q300, "-d", main.db, "--subst", subst300]
+    base = ["--backend", "cuda", "--overlap", "off", "-q", q300, "-d", main.db, "--subst", subst300]
     runs, outs = {}, {}
     for tag in ("off", "auto cold", "auto warm", "off again"):
         out = outs[tag] = os.path.join(tmp, "out-300-" + tag.replace(" ", "-"))
@@ -1379,8 +1404,9 @@ def phase_sharded_main_path(main, tmp):
         drop_resident_db()
         t0 = time.perf_counter()
         if devices is None:
-            _, _, c, _ = _counted_run(["--backend", "cuda", "-q", main.q, "-d", main.db,
-                                       "--subst", main.data, "--out", out, *flags], "9d")
+            _, _, c, _ = _counted_run(["--backend", "cuda", "--overlap", "off", "-q", main.q,
+                                       "-d", main.db, "--subst", main.data, "--out", out,
+                                       *flags], "9d")
         else:
             c = _counted_pipeline(devices, flags, main, out, "9d")
         if resident:
@@ -1412,6 +1438,172 @@ def phase_sharded(dev, card, main, tmp):
     k4["max_abs_err"] = max(k4["max_abs_err"], err_a, err_c)
     k4["launches"] = k4_launches
     return k4
+
+
+def _alignment_rows(rng, n, L):
+    """``tests/test_sift_jax.py``'s random alignment: a quarter of the
+    cells 'X', the query row standard letters."""
+    rows = rng.integers(0, 26, size=(n, L)).astype(np.uint8)
+    rows[rng.random((n, L)) < 0.25] = ord("X") - ord("A")
+    rows[0] = rng.integers(0, 20, size=L)
+    return rows
+
+
+def phase_scores_torch(dev):
+    """10a: the float32 scoring math of device predict on the card against
+    its CPU run and the float64 oracle, bit-identical between card runs,
+    and not in TF32."""
+    import torch
+    from sift4g_tpu_torch.sift import scores as S
+    from sift4g_tpu_torch.sift import scores_torch as ST
+
+    worst_oracle = worst_cpu = 0.0
+    for n, L in ((5, 40), (40, 120), (2, 8)):
+        rows = _alignment_rows(np.random.default_rng(9), n, L)
+        raw = S.create_matrix(rows, np.ones(n))[0]
+        want, _, want_nd = S.calc_sift_scores(rows, raw)
+        r, rw = torch.from_numpy(rows)[None], torch.from_numpy(raw.astype(np.float32))[None]
+        got, _, got_nd = ST.calc_sift_scores(r.to(dev), rw.to(dev))
+        cpu, _, _ = ST.calc_sift_scores(r, rw)
+        got = got[0].cpu().numpy()
+        check(np.array_equal(got_nd[0].cpu().numpy(), want_nd), f"ndiff differs at {n}x{L}")
+        check(np.allclose(got, want, rtol=2e-3, atol=2e-4), f"card vs oracle at {n}x{L}")
+        check(np.allclose(got, cpu[0].numpy(), rtol=2e-3, atol=2e-4), f"card vs CPU at {n}x{L}")
+        worst_oracle = max(worst_oracle, float(np.abs(got - want).max()))
+        worst_cpu = max(worst_cpu, float(np.abs(got - cpu[0].numpy()).max()))
+    # a full chunk of the predict mix, padded to its (L_pad, n_pad) bucket
+    from sift4g_tpu_torch.tools.bench_predict import make_inputs
+
+    _, prepared = make_inputs(64, seed=11)
+    L_pad = max(-(-r.shape[1] // 128) * 128 for r in prepared)
+    n_pad = max(-(-r.shape[0] // 64) * 64 for r in prepared)
+    packed = np.full((64, n_pad, L_pad), ord("X") - ord("A"), dtype=np.int8)
+    for j, r in enumerate(prepared):
+        packed[j, : r.shape[0], : r.shape[1]] = r
+    nv = torch.tensor([r.shape[0] for r in prepared], dtype=torch.int32)
+    rows_d, nv_d = torch.from_numpy(packed).to(dev), nv.to(dev)
+    first = ST.sift_scores_from_rows_batch(rows_d, nv_d)
+    second = ST.sift_scores_from_rows_batch(rows_d, nv_d)
+    check(torch.equal(first, second), "two card runs of one chunk differ")
+    # TF32 switched on around the call must change nothing: no product of
+    # the math goes through cuBLAS
+    torch.set_float32_matmul_precision("high")
+    try:
+        third = ST.sift_scores_from_rows_batch(rows_d, nv_d)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    check(torch.equal(first, third), "the chunk's scores changed with TF32 switched on")
+    first = first.cpu().numpy()
+    for j in range(0, 64, 9):
+        r = prepared[j]
+        raw = S.create_matrix(r, np.ones(r.shape[0]))[0]
+        want = S.calc_sift_scores(r, raw)[0]
+        got = first[j, : r.shape[1]]
+        check(np.allclose(got, want, rtol=2e-3, atol=2e-4), f"chunk query {j} vs oracle")
+        worst_oracle = max(worst_oracle, float(np.abs(got - want).max()))
+    ms = _time_ms(lambda: ST.sift_scores_from_rows_batch(rows_d, nv_d), iters=5, warmup=1)
+    plain = ST.sift_scores_from_rows_batch(torch.from_numpy(packed[:8]), nv[:8])
+    check(np.allclose(first[:8], plain.numpy(), rtol=2e-3, atol=2e-4), "chunk card vs CPU")
+    say(f"[10a] scores_torch on the card: max |card - f64 oracle| {worst_oracle:.3g}, "
+        f"|card - CPU| {worst_cpu:.3g} (rtol 2e-3, atol 2e-4); one chunk of 64 queries at "
+        f"(L_pad, n_pad) = ({L_pad}, {n_pad}) {ms:.3f} ms, bit-identical across runs and "
+        f"with TF32 switched on around the call")
+
+
+def phase_device_predict(main, tmp):
+    """10b-10d: device predict and the overlapped schedule through the CLI
+    at Swiss-Prot scale, each run held byte for byte to phase 4's
+    ``--backend native`` (host predict, two-phase) outputs; matrix mode
+    within a printed digit of the host oracle and bit-identical between
+    two card runs; and whether ``auto`` overlaps on this host."""
+    import torch
+    from sift4g_tpu_torch import pipeline as tpipe
+    from sift4g_tpu_torch.sift import predict_batch
+
+    real, seen = predict_batch.predict_matrix_batch, []
+
+    def recorded(*args, **kw):
+        seen.append(torch.device(kw.get("device")))
+        return real(*args, **kw)
+
+    predict_batch.predict_matrix_batch = recorded
+    try:
+        runs = [("10b", "overlap off, device predict",
+                 ["--overlap", "off", "--predict-backend", "device"]),
+                ("10d", "overlap on, host predict", ["--overlap", "on"]),
+                ("10d", "overlap on, device predict",
+                 ["--overlap", "on", "--predict-backend", "device"])]
+        for i, (tag, what, flags) in enumerate(runs):
+            out = os.path.join(tmp, f"out-10-{i}")
+            os.mkdir(out)
+            del seen[:]
+            wall, m, c, _ = _counted_run(["--backend", "cuda", *flags, "-q", main.q, "-d",
+                                          main.db, "--subst", main.data, "--out", out], tag)
+            check(c["kernel_launches"] > 0 and c["resident_launches"] == 0,
+                  f"{what}: left the slab path")
+            check(c["twin_calls_on_cuda"] == 0, f"{what}: a plain version ran on the card")
+            device = "--predict-backend" in flags
+            check(device == bool(seen), f"{what}: device predict ran {len(seen)} times")
+            check(all(d.type == "cuda" for d in seen), f"{what}: device predict left the card")
+            overlapped = "overlapped" in m.phases["search"]
+            check(overlapped == ("on" in flags), f"{what}: overlapped={overlapped}")
+            n = _same_tree(out, main.native_out, what)
+            sub = " ".join(f"{k}={v['seconds']:.3f}s" for k, v in m.phases.items()
+                           if k.startswith("predict"))
+            say(f"[{tag}] {what}: {n} files byte-identical to --backend native (host "
+                f"predict, two-phase); {wall:.2f} s wall; {sub}")
+
+        # 10c: matrix mode, twice on the card
+        outs = []
+        for k in range(2):
+            out = os.path.join(tmp, f"out-10c-{k}")
+            os.mkdir(out)
+            _run_cli(["--backend", "cuda", "--overlap", "off", "--predict-backend", "device",
+                      "-q", main.q5, "-d", main.db, "--out", out])
+            outs.append(out)
+        check(bool(seen) and all(d.type == "cuda" for d in seen), "matrix mode left the card")
+    finally:
+        predict_batch.predict_matrix_batch = real
+    n_mat = _same_tree(outs[0], outs[1], "matrix mode, two card runs")
+    worst = 0.0
+    for name in sorted(os.listdir(main.native_matrix_out)):
+        if not name.endswith(".SIFTprediction"):
+            continue
+        want = _matrix_values(os.path.join(main.native_matrix_out, name))
+        got = _matrix_values(os.path.join(outs[0], name))
+        check(want.shape == got.shape and want.size > 0, f"matrix {name}: shapes differ")
+        check(np.allclose(got, want, rtol=0, atol=1.5e-4),
+              f"matrix {name}: beyond a printed digit of the host oracle")
+        worst = max(worst, float(np.abs(got - want).max()))
+    say(f"[10c] matrix mode, 5 queries: {n_mat} files bit-identical between two card runs; "
+        f"max |device - host| {worst:.4g} over the printed values (atol 1.5e-4)")
+
+    cfg = tpipe.PipelineConfig(database_path=main.db, align_backend="cuda", overlap="auto",
+                               log=sys.stderr)
+    chosen = tpipe._overlap_cache(cfg, 50, [torch.device("cuda", 0)]) is not None
+    say(f"[10d] --overlap auto on this host: {'overlap' if chosen else 'two-phase'} "
+        f"({tpipe._available_cores()} available cores; auto needs 8)")
+
+
+def _matrix_values(path):
+    """The score rows of a matrix-mode ``.SIFTprediction`` file."""
+    vals = []
+    with open(path) as fp:
+        for line in fp:
+            parts = line.split()
+            if parts and parts[0] not in ("ID", "AC", "DE", "MA", "//") \
+                    and not parts[0].isalpha():
+                vals.append([float(x) for x in parts])
+    return np.asarray(vals)
+
+
+def phase_predict(dev, main, tmp):
+    t0 = time.perf_counter()
+    phase_scores_torch(dev)
+    say(f"[10a] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_device_predict(main, tmp)
+    say(f"[10b-d] took {time.perf_counter() - t0:.1f} s")
 
 
 def run_phase(tag, fn, *args):
@@ -1449,6 +1641,7 @@ def main(argv=None) -> int:
         main_path = run_phase("4", phase_main_path, tmp)
         k3_launches, k3_recorded = run_phase("4b", phase_resident_path, main_path, tmp)
         k4 = run_phase("9", phase_sharded, dev, card, main_path, tmp)
+        run_phase("10", phase_predict, dev, main_path, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     k1 = run_phase("5", phase_main_launches, main_path.recorded, card, "slab", "5")

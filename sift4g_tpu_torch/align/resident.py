@@ -47,6 +47,14 @@ from .host import PackedTargets, _length_rung
 SLOT = 16
 
 
+def free_device_bytes(device: torch.device) -> int:
+    """Free memory on a card: the free bytes ``cudaMemGetInfo`` reports
+    plus the blocks PyTorch's caching allocator holds but does not use."""
+    free, _total = torch.cuda.mem_get_info(device)
+    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return int(free) + int(cached)
+
+
 def distinct_devices(devices) -> list:
     """A device or a list of devices as a list of distinct torch.devices,
     in order of first appearance."""

@@ -16,9 +16,17 @@ distinct devices).
 ``pipeline._resident_refusal``; ``on`` that cannot hold the database
 fails with the reason instead of quietly keeping the slab path.
 
+``--predict-backend device`` scores predictions in float32 on the first
+device of the run (``--cards``' first card or ``cuda:0`` under ``cuda``,
+the CPU under ``torch`` and ``native``), through
+``sift/predict_batch.py``.  ``--overlap`` overlaps the database search
+with device scoring (``pipeline._overlap_cache``): ``auto`` takes it
+under ``--backend cuda`` on a host with at least 8 available cores and a
+parse cache, as the JAX package does on an accelerator; ``on`` forces it
+(the CPU tests); an overlapped run never builds the resident database.
+
 What the port does not carry yet is refused with the ROADMAP item that
-will port it: the serve daemon, multi-host runs, device prediction and
-the overlapped pipeline.
+will port it: the serve daemon and multi-host runs.
 """
 
 from __future__ import annotations
@@ -83,7 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "grouped CUDA kernel; torch = its PyTorch twin on the CPU; "
                    "native = the threaded C++ DP)")
     p.add_argument("--predict-backend", default="host", choices=["host", "device"],
-                   help="prediction math: host (float64, the only one ported yet)")
+                   help="prediction math: host (float64, the default) or device "
+                   "(batched float32 on the run's first device; subst-mode "
+                   "files stay byte-identical to host)")
     p.add_argument("--timings", action="store_true",
                    help="print per-phase wall-clock and throughput counters")
     p.add_argument("--cache-dir", default="",
@@ -91,8 +101,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "(default: next to each input file). Equivalent to "
                    "SIFT4G_TPU_CACHE_DIR")
     p.add_argument("--overlap", default="auto", choices=["auto", "on", "off"],
-                   help="overlap the prefilter scan with device scoring; not "
-                   "ported yet, so auto means off")
+                   help="overlap the prefilter scan with device scoring (auto: "
+                   "under --backend cuda with >= 8 available cores and a parse "
+                   "cache; on: always; off: the reference's two-phase order)")
     p.add_argument("--resident-db", default="auto", choices=["auto", "on", "off"],
                    help="device-resident database scoring: upload the slot-packed "
                    "database once and ship offsets instead of target bytes. "
@@ -131,10 +142,6 @@ def main(argv=None, metrics=None) -> int:
         return _not_ported("a multi-host run (SIFT4G_COORDINATOR / SIFT4G_MULTIHOST)", 12)
 
     args = build_parser().parse_args(raw_argv)
-    if args.predict_backend == "device":
-        return _not_ported("--predict-backend device", 9)
-    if args.overlap == "on":
-        return _not_ported("--overlap on", 10)
 
     if args.cache_dir:
         if not os.path.isdir(args.cache_dir):
@@ -212,9 +219,10 @@ def main(argv=None, metrics=None) -> int:
             out_format=args.outfmt,
             sequence_identity=args.seq_id,
             align_backend=backend,
+            predict_backend=args.predict_backend,
             timings=args.timings,
             threads=args.threads,
-            overlap="off",
+            overlap=args.overlap,
             resident_db=args.resident_db,
             metrics=metrics,
             cards=tuple(int(c) for c in args.cards) or None,

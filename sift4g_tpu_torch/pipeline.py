@@ -6,13 +6,14 @@ database_alignment.cpp:21-127): host k-mer search, then the database is
 re-streamed in chunks and each query's candidates in the chunk are
 scored on the device in one round trip, E-value filtered, capped at
 ``max_alignments`` best-first (score desc, database index asc) and
-traced back on the host; then selection, prediction and reports on the
-host.
+traced back on the host; then selection, prediction and reports.
 
 ``PipelineConfig``, ``_query_fanout``, the run-manifest helpers and
-``finish_pipeline`` are copies of the JAX package's.  ``finish_pipeline``
-keeps the host predict only: the ``--predict-backend device`` branch
-(``sift/predict_batch.py``, JAX) is not ported yet (ROADMAP item 9).
+``finish_pipeline`` are copies of the JAX package's.  Under
+``--predict-backend device`` ``finish_pipeline`` scores the queries up to
+4,096 residues in float32 on the run's first device
+(``sift/predict_batch.py``; :func:`predict_device`), the subst-mode ones
+through the float64 hybrid of ``sift/predict_subst.py``.
 
 The align phase scores on the aligner's device list: the cards of
 ``--cards`` (``PipelineConfig.cards``), or every visible card, as the JAX
@@ -23,8 +24,14 @@ from the cards' free memory (``_resident_budget``, the smallest among
 them) instead of the fixed 12 GiB of a 16 GB TPU; the database is
 replicated on every card.  ``--resident-db on`` that
 cannot hold the database raises with the reason; it never quietly keeps
-the slab path.  The overlapped prefilter/align pipeline is not ported yet
-(ROADMAP item 10): this module always runs the two-phase order.
+the slab path.
+
+The overlapped schedule (``_overlap_cache``, ``_run_overlapped``) scores
+each search chunk's new candidates while the scan goes on, under the JAX
+package's rule with a CUDA check in place of its accelerator check; its
+budget and compaction cap are ``PipelineConfig`` fields, not environment
+knobs.  An overlapped run scores on slabs and never builds the resident
+database, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -155,6 +162,13 @@ class PipelineConfig:
     # caller-provided PhaseMetrics (benchmark harnesses read the phase
     # table back after the run; None = pipeline-internal)
     metrics: Optional[object] = None
+    # the overlapped pipeline's limits (the JAX package's environment
+    # knobs SIFT4G_TPU_OVERLAP_PROV_BUDGET and _COMPACT_CAP): the most
+    # provisional entries (queries x max_candidates) it takes on, and the
+    # entry count above which it compacts (None = the larger of 1M and
+    # twice the live set; 0 = at every chunk)
+    overlap_budget: int = 20_000_000
+    overlap_compact_cap: Optional[int] = None
 
 
 class ResidentRefused(RuntimeError):
@@ -171,11 +185,9 @@ def _resident_budget(device: torch.device) -> Optional[int]:
     0.2 GB); the JAX package's fixed 12 GiB was sized for a 16 GB v5e."""
     if device.type != "cuda":
         return None
-    free, _total = torch.cuda.mem_get_info(device)
-    # blocks PyTorch's caching allocator holds but does not use are free
-    # to the resident tensor too
-    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
-    return int(free) + int(cached) - _RESIDENT_HEADROOM
+    from .align.resident import free_device_bytes
+
+    return free_device_bytes(device) - _RESIDENT_HEADROOM
 
 
 def _resident_refusal(mode_flag: str, devices, fs, indices) -> Optional[str]:
@@ -214,6 +226,211 @@ def _resident_refusal(mode_flag: str, devices, fs, indices) -> Optional[str]:
                 return (f"candidate bytes ({cand_bytes}) do not exceed the "
                         f"slotted size ({slotted})")
     return None
+
+
+def _available_cores() -> int:
+    """Cores this process may run on (its CPU affinity)."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):
+        return os.cpu_count() or 1
+
+
+def _overlap_cache(cfg: PipelineConfig, n_queries: int = 1, devices=None):
+    """The parse-cache handle when the overlapped pipeline runs, else None.
+
+    The JAX package's rule: the native search engine (chunk callbacks) and
+    the .s4gc parse cache (random access for the end-of-run traceback);
+    under "auto" also at least 8 available cores (the overlap costs about
+    a core of host work while the scan runs) and, where the JAX package
+    asks for an accelerator, CUDA devices (``--backend cuda``; on the CPU
+    the overlap is extra work only).  ``devices``: the run's device list
+    (None = every visible card).
+
+    Memory bound: the overlap holds a provisional score per live
+    candidate, n_queries x max_candidates entries (about 100 B each).
+    Above ``cfg.overlap_budget`` it refuses (loudly under "on") and the
+    run keeps the two-phase order, which streams candidates chunk by
+    chunk.  Admitted-then-evicted entries are bounded by compaction in
+    :func:`_run_overlapped`."""
+    if cfg.overlap == "off":
+        return None
+    live_entries = n_queries * max(cfg.max_candidates, 1)
+    if live_entries > cfg.overlap_budget:
+        if cfg.overlap == "on":
+            print(
+                f"* WARNING: --overlap on refused: {n_queries} queries x "
+                f"{cfg.max_candidates} candidates = {live_entries} "
+                f"provisional entries exceeds the {cfg.overlap_budget}-entry budget "
+                f"(PipelineConfig.overlap_budget); running two-phase *",
+                file=cfg.log,
+            )
+        return None
+    from . import native
+
+    if native.load() is None:
+        return None
+    if cfg.overlap == "auto":
+        if cfg.align_backend not in ("auto", "cuda") or _available_cores() < 8:
+            return None
+        if devices is None:
+            if not torch.cuda.is_available():
+                return None
+        else:
+            devs = devices if isinstance(devices, (list, tuple)) else [devices]
+            if any(torch.device(d).type != "cuda" for d in devs):
+                return None
+    try:
+        fs = FastaStream(cfg.database_path)
+    except Exception:
+        return None
+    if isinstance(fs, CachedFastaStream):
+        return fs
+    fs.close()
+    return None
+
+
+def _run_overlapped(
+    cfg: PipelineConfig,
+    queries: List[Chain],
+    scorer: Scorer,
+    cache,
+    metrics: PhaseMetrics,
+    devices=None,
+) -> List[List[AlignmentRecord]]:
+    """Prefilter and provisional device scoring, overlapped.
+
+    Exactness: a database sequence enters the engine's top-k only while
+    its own chunk is current (the admission floor is monotone, quirk Q3),
+    so the union of the per-chunk snapshots is a superset of the final
+    candidate set; provisional scores of ids evicted later are dropped.
+    Kept scores are those of the two-phase run, because the same
+    BatchAligner computes them, and the final E-value filter and the
+    (score desc, id asc) truncation run once, globally: the set the
+    per-chunk truncation and merge produce.
+
+    The scores come from slab launches (K1 on a card): an overlapped run
+    never builds the resident database, as in the JAX package, whose
+    dispatch skips ``align_database`` and so its resident path."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    log = cfg.log
+    if cfg.resident_db == "on":
+        print("* --resident-db on has no effect in an overlapped run (it scores on "
+              "slabs; --overlap off keeps the resident path) *", file=log)
+    aligner = BatchAligner(
+        scorer, mode=cfg.algorithm, backend=cfg.align_backend, devices=devices,
+        threads=cfg.threads, cards=cfg.cards,
+    )
+    prov: List[dict] = [dict() for _ in queries]
+    # one resolve worker keeps the scan free of the fetches' waits; one
+    # worker also keeps the resolves in order, so prov needs no lock (it
+    # is read only after shutdown)
+    resolver = ThreadPoolExecutor(max_workers=1)
+    resolves: List = []
+
+    def _resolve_one(fetch, meta):
+        t0 = time.perf_counter()
+        all_scores = fetch()
+        metrics.add("align.fetch", seconds=time.perf_counter() - t0)
+        for (qi, ids), scores in zip(meta, all_scores):
+            d = prov[qi]
+            for t, s in zip(ids.tolist(), scores.tolist()):
+                d[t] = s
+
+    # admitted-then-evicted ids accrue in prov across chunks; compaction
+    # drops keys absent from the engine's snapshot, which is exact because
+    # each record is scanned once and the admission floor is monotone
+    # (Q3), so an evicted id never re-enters.  It runs on the resolver:
+    # FIFO order means it sees prov after exactly the resolves submitted
+    # before it
+    prov_live_cap = cfg.overlap_compact_cap
+    if prov_live_cap is None:
+        prov_live_cap = max(1_000_000, 2 * len(queries) * max(cfg.max_candidates, 1))
+
+    def _compact(ids_now):
+        if sum(len(d) for d in prov) <= prov_live_cap:
+            return
+        for qi, cur in enumerate(ids_now):
+            d = prov[qi]
+            if len(d) > cur.size:
+                prov[qi] = {int(t): d[int(t)] for t in cur}
+
+    def on_chunk(codes, offsets, names, start_idx, snapshot):
+        ids_now = snapshot()
+        offs = np.asarray(offsets, dtype=np.int64)
+        items, meta = [], []
+        for qi, query in enumerate(queries):
+            cur = ids_now[qi]
+            new = cur[cur >= start_idx]  # this chunk's admissions (ids asc)
+            if new.size == 0:
+                continue
+            local = new - start_idx
+            starts = offs[local]
+            lens = (offs[local + 1] - starts).astype(np.int32)
+            items.append((query.codes, PackedTargets(codes, starts, lens)))
+            meta.append((qi, new))
+            metrics.add("align", cells=float(len(query)) * float(int(lens.sum())))
+        if items:
+            t0 = time.perf_counter()
+            fetch = aligner.scores_many_async(items)
+            metrics.add("align.dispatch", seconds=time.perf_counter() - t0)
+            resolves.append(resolver.submit(_resolve_one, fetch, meta))
+            # tracked like the resolves, so a compaction error propagates
+            resolves.append(resolver.submit(_compact, ids_now))
+        # drain finished resolves (an error surfaces at the next chunk)
+        # and bound the backlog: each pending resolve pins a chunk's
+        # device results (two futures per chunk)
+        while resolves and (resolves[0].done() or len(resolves) > 4):
+            resolves.pop(0).result()
+
+    try:
+        with metrics.phase("search"):
+            indices, cells = search_database(
+                cfg.database_path,
+                queries,
+                kmer_length=cfg.kmer_length,
+                max_candidates=cfg.max_candidates,
+                chunk_bytes=cfg.search_chunk_bytes,
+                log=log,
+                threads=cfg.threads,
+                on_chunk=on_chunk,
+            )
+            for fut in resolves:
+                fut.result()  # fetch errors propagate; every score landed
+    finally:
+        resolver.shutdown(wait=True)
+    metrics.add("search", db_residues=float(cells), queries=float(len(queries)),
+                overlapped=1.0)
+
+    evalue_params = create_evalue_params(cells, scorer, log=log)
+    print("** Aligning queries with candidate sequences **", file=log)
+    results: List[List[AlignmentRecord]] = [[] for _ in queries]
+    with metrics.phase("align"):
+        for qi, query in enumerate(queries):
+            ids = indices[qi]
+            if ids.size == 0:
+                continue
+            scores = np.fromiter(
+                (prov[qi][int(t)] for t in ids), dtype=np.int64, count=ids.size
+            )
+            evals = evalues(scores, len(query), evalue_params)
+            keep = np.flatnonzero(evals <= cfg.max_evalue)
+            keep = sorted(keep.tolist(), key=lambda i: (-int(scores[i]), int(ids[i])))
+            keep = keep[: cfg.max_alignments]
+            recs = align_pairs_batch(
+                query.codes,
+                [cache.codes_at(int(ids[i])) for i in keep],
+                scorer,
+                cfg.algorithm,
+                threads=cfg.threads,
+            )
+            for i, rec in zip(keep, recs):
+                rec.target_idx = int(ids[i])
+                rec.target_name = cache.name_at(int(ids[i]))
+                rec.evalue = float(evals[i])
+                results[qi].append(rec)
+    return results
 
 
 def _maybe_resident_db(fs, indices, aligner, mode_flag: str, log):
@@ -503,6 +720,15 @@ def run_pipeline(cfg: PipelineConfig, devices=None) -> List[Chain]:
         print("** EXITING! No valid queries to process. **", file=log)
         return []
 
+    cache = _overlap_cache(cfg, len(queries), devices)
+    if cache is not None:
+        # the records' target codes are views of the cache's mapping
+        with cache:
+            scorer = create_scorer(cfg.matrix, cfg.gap_open, cfg.gap_extend)
+            records = _run_overlapped(cfg, queries, scorer, cache, metrics, devices)
+            finish_pipeline(cfg, queries, records, metrics, devices)
+        return queries
+
     with metrics.phase("search"):
         indices, cells = search_database(
             cfg.database_path,
@@ -538,8 +764,21 @@ def run_pipeline(cfg: PipelineConfig, devices=None) -> List[Chain]:
             cards=cfg.cards,
         )
 
-    finish_pipeline(cfg, queries, records, metrics)
+    finish_pipeline(cfg, queries, records, metrics, devices)
     return queries
+
+
+def predict_device(cfg: PipelineConfig, devices=None) -> torch.device:
+    """Where ``--predict-backend device`` runs: the first device of the
+    run's device list (``--cards``' first card, or ``cuda:0``) under
+    ``--backend cuda``, the CPU under ``torch`` and ``native``."""
+    if devices is None:
+        from .align import resolve_backend
+
+        _, devices = resolve_backend(cfg.align_backend, cfg.cards)
+    if not isinstance(devices, (list, tuple)):
+        devices = [devices]
+    return torch.device(devices[0])
 
 
 def finish_pipeline(
@@ -547,11 +786,16 @@ def finish_pipeline(
     queries: List[Chain],
     records: List[List[AlignmentRecord]],
     metrics: Optional[PhaseMetrics] = None,
+    devices=None,
 ) -> None:
     """Post-align stages: sub-results, selection, prediction, reports.
 
-    Host predict only (the JAX package's device-predict branch is not
-    ported yet)."""
+    Under ``--predict-backend device`` the queries up to
+    ``MAX_DEVICE_QUERY_LEN`` residues are scored by
+    ``sift/predict_batch.py`` on :func:`predict_device` (``devices``: the
+    run's device list; None resolves ``cfg``), the longer ones by the
+    host oracle.  On a card a CUDA error ends the run: nothing continues
+    on the CPU."""
     log = cfg.log
     if metrics is None:
         metrics = PhaseMetrics(log=log, enabled=cfg.timings)
@@ -593,9 +837,31 @@ def finish_pipeline(
         f"{float(cfg.sequence_identity):.2f}% **",
         file=log,
     )
+    # under --predict-backend device every query up to the length cap
+    # rides the batched launches: matrix-mode queries get the float32
+    # full-matrix write, subst-mode queries the f32-screen + float64
+    # hybrid, byte-identical to the host oracle (sift/predict_subst.py)
+    device_qis: List[int] = []
+    subst_paths = {}
+    if cfg.predict_backend == "device":
+        from .io.subst import subst_file_name
+        from .sift.predict_batch import MAX_DEVICE_QUERY_LEN
+
+        for qi in range(len(queries)):
+            if not all_rows[qi].shape[0]:
+                continue
+            # the longest queries stay on the host oracle: the chunk's
+            # one-hot grows linearly in the query length
+            if len(queries[qi]) > MAX_DEVICE_QUERY_LEN:
+                continue
+            device_qis.append(qi)
+            sp = subst_file_name(queries[qi].name, cfg.subst_path)
+            if os.path.isfile(sp):
+                subst_paths[qi] = sp
+    device_set = set(device_qis)
 
     def _predict_one(qi: int) -> None:
-        if all_rows[qi].shape[0] == 0:
+        if all_rows[qi].shape[0] == 0 or qi in device_set:
             return  # sift_prediction.cpp:154
         predict_query(
             queries[qi],
@@ -608,4 +874,82 @@ def finish_pipeline(
 
     with metrics.phase("predict"):
         _query_fanout(_predict_one, len(queries), cfg.threads, log)
+        if device_qis:
+            _predict_on_device(cfg, queries, all_names, all_rows, device_qis, subst_paths,
+                               predict_device(cfg, devices), metrics)
     metrics.report()
+
+
+def _predict_on_device(cfg, queries, all_names, all_rows, device_qis, subst_paths, device,
+                       metrics) -> None:
+    """The device-predict branch of :func:`finish_pipeline`: row
+    preparation over the host threads, the subst finishers (a spawn
+    process pool from 256 subst queries), the batched launches and the
+    finishers' drain."""
+    from .sift.predict import prepare_rows
+    from .sift.predict_batch import predict_matrix_batch
+
+    log = cfg.log
+
+    def _prep(qi):
+        return prepare_rows(queries[qi], all_names[qi], all_rows[qi], cfg.sequence_identity)
+
+    # row prep (Q7 cap, identity filter, vstack) is independent per query
+    # and NumPy-heavy: fan it over the host threads
+    t_prep = time.perf_counter()
+    if cfg.threads > 1 and len(device_qis) > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=cfg.threads) as ex:
+            prepared = list(ex.map(_prep, device_qis))
+    else:
+        prepared = [_prep(qi) for qi in device_qis]
+    metrics.add("predict.prep", seconds=time.perf_counter() - t_prep)
+    finishers = None
+    subst_exec, subst_futs = None, []
+    if subst_paths:
+        from .io.subst import read_subst_lines
+        from .sift.predict_subst import (
+            finish_subst_query,
+            finish_subst_task,
+            make_subst_executor,
+        )
+
+        # at many subst queries the finishers' GIL-held numpy share
+        # serialises the writer threads; a small spawn process pool
+        # scales them (predict_subst docstrings)
+        subst_exec = make_subst_executor(len(subst_paths))
+        finishers = [None] * len(device_qis)
+        for k, qi in enumerate(device_qis):
+            sp = subst_paths.get(qi)
+            if sp is None:
+                continue
+            args = (queries[qi], prepared[k], read_subst_lines(sp),
+                    create_file_name(queries[qi].name, cfg.out_path, ".SIFTprediction"))
+            if subst_exec is not None:
+                finishers[k] = (
+                    lambda scores, a=args: subst_futs.append(subst_exec.submit(
+                        finish_subst_task,
+                        (a[0].name, a[0].letters, a[1], a[2], np.ascontiguousarray(scores),
+                         a[3]),
+                    ))
+                )
+            else:
+                finishers[k] = (
+                    lambda scores, a=args:
+                    finish_subst_query(a[0], a[1], a[2], scores, a[3], log=log)
+                )
+    try:
+        predict_matrix_batch(
+            [queries[qi] for qi in device_qis], prepared, cfg.out_path,
+            threads=cfg.threads, metrics=metrics, finishers=finishers, device=device,
+            log=log,
+        )
+        t_drain = time.perf_counter()
+        for fut in subst_futs:
+            fut.result()  # surface worker exceptions
+        if subst_futs:
+            metrics.add("predict.substdrain", seconds=time.perf_counter() - t_drain)
+    finally:
+        if subst_exec is not None:
+            subst_exec.shutdown()

@@ -35,9 +35,9 @@ of protection:
 Median seq info (the other printed column) is always host float64
 (scores.add_median_seq_info, memoized per keep-mask).
 
-In the port nothing calls this module yet: device predict is still to be
-ported, and it will call the finishers here.  The copy drops the "stale
-.so" ``hasattr`` guard around the native weights helper.
+In the port the device branch of ``pipeline.finish_pipeline`` calls the
+finishers here, with the screen from ``scores_torch.py``.  The copy drops
+the "stale .so" ``hasattr`` guard around the native weights helper.
 """
 
 from __future__ import annotations

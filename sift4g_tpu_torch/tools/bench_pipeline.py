@@ -16,11 +16,15 @@ appends one JSON line per run (tag, total_s, queries, backend, phases),
 and ``--aggregate F [F ...]`` prints, per file, the best-of-phases
 composite over its warm runs beside the best single-run total.
 
-Refused as the port's CLI refuses them, with the ROADMAP item that will
-port them: ``--overlap on`` and ``--overlap-ab`` (item 10),
-``--predict-backend device`` (item 9).  The JAX tool's ``--cpu`` (a
-``jax.config`` switch) is gone: ``--backend torch`` is the port's CPU
-path.
+``--predict-backend device`` scores the predictions in float32 on the
+run's first device (the card under ``cuda``, the CPU under ``torch``);
+``--overlap auto|on|off`` picks the schedule as the CLI does, and
+``--overlap-ab`` runs cold (on), then warm off, on, off, on in one
+process, the arms interleaved so that drift hits both, as the JAX tool
+does.  ``--predict-ab`` does the same for ``--predict-backend`` (cold
+device, then warm host, device, host, device), a port-only flag.  The JAX
+tool's ``--cpu`` (a ``jax.config`` switch) is gone:
+``--backend torch`` is the port's CPU path.
 """
 
 from __future__ import annotations
@@ -90,9 +94,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--repeat", action="store_true",
                     help="run twice; the second (warm) run excludes the kernels' build")
     ap.add_argument("--overlap", default="auto", choices=["auto", "on", "off"],
-                    help="prefilter/align overlap; not ported yet, so auto means off")
+                    help="prefilter/align overlap mode (A/B knob)")
     ap.add_argument("--predict-backend", default="host", choices=["host", "device"],
-                    help="matrix-mode prediction path (host only, so far)")
+                    help="prediction path (device = bucketed float32 batches on "
+                    "the run's first device)")
     ap.add_argument("--subst", default="",
                     help="substitutions directory (subst-mode benchmark)")
     ap.add_argument("--also-subst", default="", metavar="DIR",
@@ -101,13 +106,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--resident-db", default="auto", choices=["auto", "on", "off"],
                     help="device-resident database scoring (A/B knob)")
     ap.add_argument("--overlap-ab", action="store_true",
-                    help="overlap on/off A/B in one process (not ported yet)")
+                    help="cold + four warm runs A/B-ing overlap on/off in one "
+                    "process")
+    ap.add_argument("--predict-ab", action="store_true",
+                    help="cold + four warm runs A/B-ing --predict-backend "
+                    "host/device in one process")
     return ap
-
-
-def _refuse(what: str, item: int) -> int:
-    print(f"error: {what} is not ported yet (ROADMAP item {item})", file=sys.stderr)
-    return 2
 
 
 def main(argv=None) -> int:
@@ -117,12 +121,6 @@ def main(argv=None) -> int:
         return aggregate(args.aggregate)
     if not args.data_dir:
         ap.error("data_dir is required unless --aggregate is given")
-    if args.overlap == "on":
-        return _refuse("--overlap on", 10)
-    if args.overlap_ab:
-        return _refuse("--overlap-ab", 10)
-    if args.predict_backend == "device":
-        return _refuse("--predict-backend device", 9)
 
     from ..align import resolve_backend
     from ..pipeline import PipelineConfig, ResidentRefused, run_pipeline
@@ -143,14 +141,31 @@ def main(argv=None) -> int:
         max_candidates=args.max_candidates,
         subst_path=args.subst,
         timings=True,
-        overlap="off",
+        overlap=args.overlap,
+        predict_backend=args.predict_backend,
         resident_db=args.resident_db,
     )
-    tags = ["cold", "warm"] if args.repeat else ["cold"]
+    if args.overlap_ab and args.predict_ab:
+        ap.error("--overlap-ab and --predict-ab are separate A/Bs")
+    pb = args.predict_backend
+    if args.overlap_ab:
+        # one process: cold (on), then the warm arms interleaved
+        schedule = [("cold", "on", pb), ("warm-off", "off", pb), ("warm-on", "on", pb),
+                    ("warm-off2", "off", pb), ("warm-on2", "on", pb)]
+    elif args.predict_ab:
+        ov = args.overlap
+        schedule = [("cold", ov, "device"), ("warm-host", ov, "host"),
+                    ("warm-device", ov, "device"), ("warm-host2", ov, "host"),
+                    ("warm-device2", ov, "device")]
+    else:
+        schedule = [(t, args.overlap, pb)
+                    for t in (["cold", "warm"] if args.repeat else ["cold"])]
     if args.also_subst:
-        tags += ["subst-warm1", "subst-warm2"]
-    for tag in tags:
+        schedule += [("subst-warm1", args.overlap, pb), ("subst-warm2", args.overlap, pb)]
+    for tag, ov, pb in schedule:
         cfg.subst_path = args.also_subst if tag.startswith("subst") else args.subst
+        cfg.overlap = ov
+        cfg.predict_backend = pb
         cfg.metrics = PhaseMetrics(log=sys.stderr, enabled=True)
         t0 = time.perf_counter()
         try:
@@ -162,7 +177,9 @@ def main(argv=None) -> int:
         print(
             f"pipeline[{tag}]: {len(queries)} queries in {dt:.2f}s "
             f"-> {len(queries) / dt:.3f} queries/s "
-            f"[backend={args.backend} overlap=off]",
+            f"[backend={args.backend} overlap={ov} "
+            f"overlapped={int('overlapped' in cfg.metrics.phases.get('search', {}))} "
+            f"predict={pb}]",
             file=sys.stderr,
         )
         if args.json:
@@ -172,6 +189,8 @@ def main(argv=None) -> int:
                     "total_s": round(dt, 3),
                     "queries": len(queries),
                     "backend": args.backend,
+                    "overlap": ov,
+                    "predict_backend": pb,
                     "phases": cfg.metrics.phases,
                 }) + "\n")
     return 0

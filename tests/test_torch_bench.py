@@ -39,8 +39,10 @@ def _run_module(*argv):
 
 @pytest.mark.parametrize("argv", [("sift4g_tpu_torch.bench",),
                                   ("sift4g_tpu_torch.tools.bench_ab", "roofline"),
-                                  ("sift4g_tpu_torch.tools.chip_sharded_sanity",)],
-                         ids=["bench", "bench_ab-roofline", "chip_sharded_sanity"])
+                                  ("sift4g_tpu_torch.tools.chip_sharded_sanity",),
+                                  ("sift4g_tpu_torch.tools.bench_predict", "--n", "4")],
+                         ids=["bench", "bench_ab-roofline", "chip_sharded_sanity",
+                              "bench_predict"])
 def test_card_entry_points_fail_without_a_card(argv):
     proc = _run_module(*argv)
     assert proc.returncode != 0
@@ -125,12 +127,41 @@ def test_bench_pipeline_repeat_json_and_aggregate(tiny_db, tmp_path, capsys):
     assert "q/s" in out
 
 
-@pytest.mark.parametrize("flags, item", [(["--overlap", "on"], 10), (["--overlap-ab"], 10),
-                                         (["--predict-backend", "device"], 9)],
+@pytest.mark.parametrize("flags, item", [(["--overlap", "on"], None), (["--overlap-ab"], None),
+                                         (["--predict-backend", "device"], None)],
                          ids=["overlap-on", "overlap-ab", "device-predict"])
-def test_bench_pipeline_refuses_unported_flags(tiny_db, flags, item, capsys):
-    assert bench_pipeline.main([str(tiny_db), "--backend", "torch", *flags]) == 2
-    assert f"not ported yet (ROADMAP item {item})" in capsys.readouterr().err
+def test_bench_pipeline_refuses_unported_flags(tiny_db, flags, item, capsys, tmp_path):
+    """The flags once refused here (item None: since ported) run and say
+    which schedule each run took."""
+    assert item is None
+    assert bench_pipeline.main([str(tiny_db), "--backend", "torch", "--out",
+                                str(tmp_path / "out"), *flags]) == 0
+    err = capsys.readouterr().err
+    assert "not ported" not in err
+    if "--overlap-ab" in flags:
+        tags = ["cold", "warm-off", "warm-on", "warm-off2", "warm-on2"]
+        assert [line.split("]")[0].split("[")[1] for line in err.splitlines()
+                if line.startswith("pipeline[")] == tags
+        assert "overlap=on" in err and "overlap=off" in err
+    if "--predict-backend" in flags:
+        assert "predict=device" in err and "predict.pack" in err
+    assert any(p.endswith(".SIFTprediction") for p in os.listdir(tmp_path / "out"))
+
+
+def test_bench_predict_runs_on_the_cpu_when_asked(tmp_path):
+    """``bench_predict --device cpu``: the JAX tool's mix, cold and warm,
+    one JSON line naming the CPU and no card."""
+    proc = _run_module("sift4g_tpu_torch.tools.bench_predict", "--n", "6", "--device", "cpu",
+                       "--out", str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    lines = proc.stdout.splitlines()
+    assert lines[1].startswith("predict[cold] n=6 device=cpu")
+    assert lines[2].startswith("predict[warm] n=6 device=cpu")
+    rec = json.loads(lines[-1])
+    assert rec["device"] == "cpu" and rec["card"] is None and rec["widths"] == [64]
+    assert [r["tag"] for r in rec["runs"]] == ["cold", "warm"]
+    assert all("predict.pack" in r and "peak_bytes" not in r for r in rec["runs"])
+    assert sorted(os.listdir(tmp_path)) == [f"q{i:05d}.SIFTprediction" for i in range(6)]
 
 
 def test_bench_pipeline_cuda_fails_without_a_card(no_gpu, tiny_db, capsys):

@@ -315,3 +315,81 @@ def test_sharded_factories_on_two_shards_of_the_card(cuda, screen_k):
     got = sharded.make_sharded_scores(mesh)(q, torch.tensor(300, dtype=torch.int32), t, tl, m32)
     assert sw_grouped.single_launches == 2 and sw_grouped.twin_calls_on_cuda == 0
     assert torch.equal(torch.cat(got), want)
+
+
+def _predict_chunk(seed, nq):
+    """A chunk of the device-predict mix (``tools/bench_predict.py``),
+    padded to one bucket: (packed int8 rows, n_valid, prepared rows)."""
+    from sift4g_tpu_torch.tools.bench_predict import make_inputs
+
+    _, prepared = make_inputs(nq, seed=seed)
+    L_pad = max(-(-r.shape[1] // 128) * 128 for r in prepared)
+    n_pad = max(-(-r.shape[0] // 64) * 64 for r in prepared)
+    packed = np.full((nq, n_pad, L_pad), ord("X") - ord("A"), dtype=np.int8)
+    for j, r in enumerate(prepared):
+        packed[j, : r.shape[0], : r.shape[1]] = r
+    n_valid = torch.tensor([r.shape[0] for r in prepared], dtype=torch.int32)
+    return torch.from_numpy(packed), n_valid, prepared
+
+
+@pytest.mark.gpu
+def test_device_predict_scores_on_the_card(cuda):
+    """scores_torch on the card: within the reference's tolerance (rtol
+    2e-3, atol 2e-4) of its CPU run and the float64 oracle, bit-identical
+    between two runs, and the same bits with TF32 switched on around the
+    call (no product of the math goes through cuBLAS)."""
+    from sift4g_tpu_torch.sift import scores as S
+    from sift4g_tpu_torch.sift import scores_torch as ST
+
+    rows, n_valid, prepared = _predict_chunk(5, 16)
+    got = ST.sift_scores_from_rows_batch(rows.to(cuda), n_valid.to(cuda))
+    again = ST.sift_scores_from_rows_batch(rows.to(cuda), n_valid.to(cuda))
+    assert torch.equal(got, again)
+    torch.set_float32_matmul_precision("high")
+    try:
+        tf32 = ST.sift_scores_from_rows_batch(rows.to(cuda), n_valid.to(cuda))
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    assert torch.equal(got, tf32)
+    cpu = ST.sift_scores_from_rows_batch(rows[:4], n_valid[:4])
+    np.testing.assert_allclose(got[:4].cpu().numpy(), cpu.numpy(), rtol=2e-3, atol=2e-4)
+    for j in (0, 7, 15):
+        r = prepared[j]
+        want = S.calc_sift_scores(r, S.create_matrix(r, np.ones(r.shape[0]))[0])[0]
+        np.testing.assert_allclose(got[j, : r.shape[1]].cpu().numpy(), want,
+                                   rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_device_predict_files_on_the_card(cuda, tmp_path):
+    """predict_matrix_batch on the card writes the CPU run's files within a
+    printed digit, the same bytes twice, and at every depth."""
+    import filecmp
+    import os
+
+    from sift4g_tpu_torch.sift import predict_batch as PB
+    from sift4g_tpu_torch.tools.bench_predict import make_inputs
+
+    queries, prepared = make_inputs(40, seed=3)
+    outs = {}
+    for tag, kw in {"cpu": dict(device="cpu", q_chunk=8), "card": dict(device=cuda),
+                    "card2": dict(device=cuda), "depth1": dict(device=cuda, depth=1),
+                    "chunk8": dict(device=cuda, q_chunk=8)}.items():
+        out = tmp_path / tag
+        out.mkdir()
+        PB.predict_matrix_batch(queries, prepared, str(out), **kw)
+        outs[tag] = out
+    names = sorted(os.listdir(outs["cpu"]))
+    assert len(names) == 40
+    for name in names:
+        for tag in ("card2", "depth1"):
+            assert filecmp.cmp(outs["card"] / name, outs[tag] / name, shallow=False), tag
+
+        def values(path):
+            return np.array([[float(x) for x in line.split()] for line in open(path)
+                             if line[:2] not in ("ID", "AC", "DE", "MA", "//")
+                             and not line.split()[0].isalpha()])
+
+        want = values(outs["cpu"] / name)
+        for tag in ("card", "chunk8"):
+            np.testing.assert_allclose(values(outs[tag] / name), want, atol=1.5e-4)

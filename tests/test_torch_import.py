@@ -154,8 +154,8 @@ def test_cpu_backends_need_no_gpu(no_gpu):
         (["--connect", "/tmp/s.sock"], {}, 12),
         (["--shutdown"], {}, 12),
         ([], {"SIFT4G_COORDINATOR": "localhost:1234"}, 12),
-        (["--predict-backend", "device"], {}, 9),
-        (["--overlap", "on"], {}, 10),
+        (["--predict-backend", "device"], {}, None),
+        (["--overlap", "on"], {}, None),
         (["--resident-db", "on"], {}, None),
         (["--cards", "01"], {}, None),
     ],
