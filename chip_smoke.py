@@ -131,6 +131,28 @@ Phases, in order; the first failure ends the run with a non-zero exit:
        byte-identical to phase 4's two-phase outputs, on the slab path;
        and whether ``--overlap auto`` overlaps on this host, with its
        available cores.
+11. (run after phase 10, on phase 4's database and 50 queries, every job
+   ``--overlap off``) the serve daemon on the card: the port's
+   ``--serve SOCK`` in a subprocess (through ``chip_smoke.py --counted``,
+   which counts the kernel launches of each job), jobs through the
+   port's ``--connect`` client: ``--resident-db on`` twice, then default
+   flags, then a bad job (``--kmer-length 7``: status -1, and the daemon
+   serves on), then ``--shutdown`` (the daemon exits 0 and its socket is
+   gone).  Every job's files byte-identical to phase 4's ``--backend
+   native``; the second job must find the first job's resident database
+   (the same object in the daemon, no second upload); the cold and warm
+   jobs' ``elapsed_s`` are printed beside phase 4's one-shot CLI time;
+12. (same data) multi-host on one card: two processes of the port's CLI
+   joined over gloo on 127.0.0.1, both on ``cuda:0``, with
+   ``--mh-shard db`` at default flags (K1 on each shard, K3 where
+   ``auto`` takes it; each host's launches are printed) and ``--mh-shard
+   queries``; both byte-identical to phase 4's ``--backend native``; host
+   0's phase seconds are printed.
+
+``python3 chip_smoke.py --counted ARGS`` runs the port's CLI on ARGS in
+its process (what ``python -m sift4g_tpu_torch ARGS`` runs), with every
+CLI run in it, each daemon job included, counting the scorer kernels'
+launches; phases 11 and 12 start their processes so.
 
 Each phase prints its seconds.  The last line of stdout is
 ``{"ok": true, "device": {...}}``; the line before it the card's name and
@@ -703,9 +725,20 @@ def _run_cli(args, metrics=None):
     check(rc == 0, f"CLI {' '.join(args)} exited {rc}")
 
 
-def _same_tree(a, b, what):
-    names = sorted(os.listdir(a))
-    check(names == sorted(os.listdir(b)), f"{what}: different output file sets")
+def _counts():
+    from sift4g_tpu_torch.align import sw_grouped
+
+    return {"kernel_launches": sw_grouped.kernel_launches,
+            "resident_launches": sw_grouped.resident_launches,
+            "twin_calls_on_cuda": sw_grouped.twin_calls_on_cuda}
+
+
+def _same_tree(a, b, what, hidden=True):
+    """Every file of ``a`` and ``b`` byte-identical (``hidden=False``: not
+    the run manifest, which only ``run_pipeline`` writes)."""
+    names = sorted(n for n in os.listdir(a) if hidden or not n.startswith("."))
+    check(names == sorted(n for n in os.listdir(b) if hidden or not n.startswith(".")),
+          f"{what}: different output file sets")
     preds = [n for n in names if n.endswith(".SIFTprediction")]
     check(bool(preds), f"{what}: no .SIFTprediction written")
     _, mismatch, errors = filecmp.cmpfiles(a, b, names, shallow=False)
@@ -727,11 +760,7 @@ def _counted_run(args, tag, record=None):
         t0 = time.perf_counter()
         _run_cli([*args, "--timings"], metrics)
         wall = time.perf_counter() - t0
-        counts = {
-            "kernel_launches": sw_grouped.kernel_launches,
-            "resident_launches": sw_grouped.resident_launches,
-            "twin_calls_on_cuda": sw_grouped.twin_calls_on_cuda,
-        }
+        counts = _counts()
     for name, d in metrics.phases.items():
         extra = " ".join(f"{k}={v:g}" for k, v in d.items() if k != "seconds")
         say(f"[{tag}]   phase {name:16s} {d.get('seconds', 0.0):9.3f} s  {extra}")
@@ -761,7 +790,7 @@ def phase_main_path(tmp):
               "--out", outs["native"]])
     native_s = time.perf_counter() - t0
 
-    _, _, counts, recorded = _counted_run(
+    cuda_s, _, counts, recorded = _counted_run(
         ["--backend", "cuda", "--overlap", "off", "-q", q, "-d", db, "--subst", data,
          "--out", outs["cuda"]],
         "4", record="sw_scores_grouped",
@@ -787,7 +816,7 @@ def phase_main_path(tmp):
     n_mat = _same_tree(outs["cuda"] + "-matrix", outs["native"] + "-matrix", "matrix mode")
     say(f"[4] matrix mode, 5 queries: {n_mat} files byte-identical to --backend native")
     check(len(recorded) == launches, f"{len(recorded)} launches recorded, {launches} counted")
-    return SimpleNamespace(data=data, q=q, db=db, native_out=outs["native"], q5=q5,
+    return SimpleNamespace(data=data, q=q, db=db, native_out=outs["native"], q5=q5, cuda_s=cuda_s,
                            native_matrix_out=outs["native"] + "-matrix",
                            launches=launches, recorded=recorded)
 
@@ -1373,9 +1402,7 @@ def _counted_pipeline(devices, flags, main, out, tag):
     t0 = time.perf_counter()
     run_pipeline(cfg, devices)
     wall = time.perf_counter() - t0
-    counts = {"kernel_launches": sw_grouped.kernel_launches,
-              "resident_launches": sw_grouped.resident_launches,
-              "twin_calls_on_cuda": sw_grouped.twin_calls_on_cuda}
+    counts = _counts()
     align = metrics.phases["align"]
     say(f"[{tag}] {wall:.2f} s wall, align {align['seconds']:.3f} s, "
         f"{align['cells'] / align['seconds'] / 1e9:.2f} GCUPS over the align phase, "
@@ -1606,6 +1633,245 @@ def phase_predict(dev, main, tmp):
     say(f"[10b-d] took {time.perf_counter() - t0:.1f} s")
 
 
+COUNTS_TAG = "SMOKE_COUNTS "
+
+
+def counted_cli(argv) -> int:
+    """``--counted ARGS``: the port's CLI on ARGS in this process.  Every
+    CLI run it makes (each daemon job included: the daemon calls
+    ``cli.main`` per job) sets the kernel counters to 0 just before it and
+    writes them just after, as one ``SMOKE_COUNTS {...}`` line on stderr
+    (a daemon job's stderr is its log, relayed to its client), with the
+    resident databases built in the run (``uploads``: calls of
+    ``get_resident_db`` that did not return the live one), the seconds
+    spent in the resident rule and in ``get_resident_db``, in the garbage
+    collector, and the card's allocated bytes after the run."""
+    import gc
+
+    import torch
+    from sift4g_tpu_torch import cli, pipeline
+    from sift4g_tpu_torch.align import resident, sw_grouped
+
+    real, stats = cli.main, {}
+
+    def timed(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapper(*args, **kw):
+            before = resident._RESIDENT_CACHE.get("db")
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                stats[name + "_s"] = stats.get(name + "_s", 0.0) + time.perf_counter() - t0
+                if name == "get_resident_db" and resident._RESIDENT_CACHE.get("db") is not before:
+                    stats["uploads"] += 1
+
+        setattr(mod, name, wrapper)
+
+    timed(pipeline, "_resident_refusal")
+    timed(resident, "get_resident_db")
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            stats["gc_t0"] = time.perf_counter()
+        elif "gc_t0" in stats:
+            stats["gc_s"] += time.perf_counter() - stats.pop("gc_t0")
+
+    gc.callbacks.append(on_gc)
+
+    def counted(args=None, metrics=None):
+        sw_grouped.reset_counters()
+        stats.clear()
+        stats.update(uploads=0, gc_s=0.0)
+        try:
+            return real(args, metrics)
+        finally:
+            stats.pop("gc_t0", None)
+            rec = dict(_counts(), **stats, allocated=torch.cuda.memory_allocated(0)
+                       if torch.cuda.is_initialized() else 0)
+            print(COUNTS_TAG + json.dumps(rec), file=sys.stderr, flush=True)
+
+    cli.main = counted
+    return real(argv) if "--serve" in argv else counted(argv)
+
+
+def _counts_lines(text):
+    return [json.loads(line[len(COUNTS_TAG):]) for line in text.splitlines()
+            if line.startswith(COUNTS_TAG)]
+
+
+def _wait_socket(path, proc, log, timeout=180.0):
+    import socket
+
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if proc.poll() is not None:
+            with open(log) as fh:
+                raise SystemExit(f"FAIL: the daemon exited {proc.returncode}:\n{fh.read()[-3000:]}")
+        if os.path.exists(path):
+            with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as c:
+                try:
+                    c.connect(path)
+                    return
+                except OSError:
+                    pass
+        time.sleep(0.2)
+    raise SystemExit("FAIL: the daemon's socket never came up")
+
+
+def _stop(procs):
+    for p in procs:
+        if p.poll() is None:
+            os.killpg(p.pid, 9)
+            p.wait()
+
+
+def phase_daemon(main, tmp):
+    """11: the serve daemon on the card, jobs through ``--connect``."""
+    import re
+
+    sock = os.path.join(tmp, "daemon.sock")
+    log = os.path.join(tmp, "daemon.err")
+    with open(log, "w") as fh:
+        daemon = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                                   "--counted", "--serve", sock], stderr=fh, cwd=ROOT,
+                                  start_new_session=True)
+    try:
+        t0 = time.perf_counter()
+        _wait_socket(sock, daemon, log)
+        say(f"[11] daemon listening after {time.perf_counter() - t0:.1f} s")
+
+        def job(flags, out=None):
+            args = ["--backend", "cuda", "--overlap", "off", "--timings", *flags, "-q", main.q,
+                    "-d", main.db, "--subst", main.data]
+            if out is not None:
+                os.mkdir(out)
+                args += ["--out", out]
+            proc = subprocess.run([sys.executable, "-m", "sift4g_tpu_torch", "--connect", sock,
+                                   *args], capture_output=True, text=True, cwd=ROOT, timeout=900)
+            m = re.search(r"\*\* job (\d+) done in ([\d.]+)s \(status (-?\d+)\) \*\*",
+                          proc.stderr)
+            check(m is not None, f"daemon job {flags}: no status line:\n{proc.stderr[-3000:]}")
+            up = re.search(r"align\.upload\s+([\d.]+)s", proc.stderr)
+            counts = _counts_lines(proc.stderr)
+            check(len(counts) == 1, f"daemon job {flags}: {len(counts)} counter lines")
+            return SimpleNamespace(job=int(m.group(1)), elapsed=float(m.group(2)),
+                                   status=int(m.group(3)), rc=proc.returncode,
+                                   counts=counts[0], stderr=proc.stderr,
+                                   resident="HBM-resident database" in proc.stderr,
+                                   upload_s=float(up.group(1)) if up else None)
+
+        runs = [("cold, --resident-db on", ["--resident-db", "on"]),
+                ("warm, --resident-db on", ["--resident-db", "on"]),
+                ("default flags", [])]
+        done = []
+        for i, (what, flags) in enumerate(runs):
+            r = job(flags, os.path.join(tmp, f"out-11-{i}"))
+            check(r.status == 0 and r.rc == 0, f"daemon job {what}: status {r.status}:\n"
+                  + r.stderr[-3000:])
+            check(r.job == i + 1, f"daemon job {what}: job number {r.job}, expected {i + 1}")
+            c = r.counts
+            check(c["twin_calls_on_cuda"] == 0, f"daemon job {what}: a plain version ran on the card")
+            if flags:
+                check(r.resident and c["resident_launches"] > 0 and c["kernel_launches"] == 0,
+                      f"daemon job {what}: left the resident path ({c})")
+            check(c["resident_launches"] + c["kernel_launches"] > 0,
+                  f"daemon job {what}: launched no kernel")
+            n = _same_tree(os.path.join(tmp, f"out-11-{i}"), main.native_out, f"daemon job {what}")
+            kernel = "K3 (resident)" if c["resident_launches"] else "K1 (slabs)"
+            say(f"[11] job {r.job} ({what}): {r.elapsed:.3f} s elapsed_s, {kernel}: K1 "
+                f"{c['kernel_launches']}, K3 {c['resident_launches']} launches; resident "
+                f"databases built {c['uploads']}; align.upload {r.upload_s} s (resident rule "
+                f"{c.get('_resident_refusal_s', 0.0):.3f} s, get_resident_db "
+                f"{c.get('get_resident_db_s', 0.0):.3f} s); garbage collector {c['gc_s']:.3f} s; "
+                f"{c['allocated']} bytes allocated on the card after it; {n} files "
+                f"byte-identical to --backend native")
+            done.append(r)
+        cold, warm, dflt = done
+        check(cold.counts["uploads"] == 1, "the cold job built no resident database")
+        check(warm.counts["uploads"] == 0 and dflt.counts["uploads"] == 0,
+              "a later job built the resident database again")
+        say(f"[11] the warm and default-flags jobs reused the cold job's resident database "
+            f"(get_resident_db returned the live one; align.upload {warm.upload_s} and "
+            f"{dflt.upload_s} s against {cold.upload_s} s cold); allocated after each job: "
+            f"{cold.counts['allocated']}, {warm.counts['allocated']}, "
+            f"{dflt.counts['allocated']} bytes")
+        say(f"[11] elapsed_s: cold {cold.elapsed:.3f} s, warm {warm.elapsed:.3f} s, default flags "
+            f"{dflt.elapsed:.3f} s; phase 4's one-shot CLI run (in process, --backend cuda) "
+            f"{main.cuda_s:.3f} s")
+
+        bad = job(["--kmer-length", "7"])
+        check(bad.status == -1 and bad.job == 4 and "kmer_length possible values" in bad.stderr,
+              f"the bad job: status {bad.status}, job {bad.job}")
+        check(daemon.poll() is None, "the bad job ended the daemon")
+        shut = subprocess.run([sys.executable, "-m", "sift4g_tpu_torch", "--connect", sock,
+                               "--shutdown"], capture_output=True, text=True, cwd=ROOT,
+                              timeout=120)
+        check(shut.returncode == 0, f"--shutdown exited {shut.returncode}: {shut.stderr[-2000:]}")
+        check(daemon.wait(timeout=120) == 0, f"the daemon exited {daemon.returncode}")
+        check(not os.path.exists(sock), "the daemon left its socket behind")
+        say("[11] the bad job returned status -1 and the daemon served on; --shutdown: the "
+            "daemon exited 0 and removed its socket")
+    finally:
+        _stop([daemon])
+
+
+def phase_multihost(main, tmp):
+    """12: two processes of the CLI joined over gloo, both on cuda:0."""
+    import socket
+
+    for mode in ("db", "queries"):
+        out = os.path.join(tmp, f"out-12-{mode}")
+        os.mkdir(out)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        procs, logs = [], []
+        t0 = time.perf_counter()
+        try:
+            for pid in range(2):
+                env = dict(os.environ, SIFT4G_COORDINATOR=f"127.0.0.1:{port}",
+                           SIFT4G_NUM_PROCESSES="2", SIFT4G_PROCESS_ID=str(pid))
+                logs.append(os.path.join(tmp, f"host{pid}-{mode}.err"))
+                with open(logs[-1], "w") as fh:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--counted",
+                         "--backend", "cuda", "--overlap", "off", "--mh-shard", mode,
+                         "--timings", "-q", main.q, "-d", main.db, "--subst", main.data,
+                         "--out", out], stderr=fh, env=env, cwd=ROOT, start_new_session=True))
+            for p in procs:
+                p.wait(timeout=900)
+        finally:
+            _stop(procs)
+        wall = time.perf_counter() - t0
+        texts = []
+        for pid, (p, path) in enumerate(zip(procs, logs)):
+            with open(path) as fh:
+                texts.append(fh.read())
+            check(p.returncode == 0, f"--mh-shard {mode}: host {pid} exited {p.returncode}:\n"
+                  + texts[-1][-3000:])
+        n = _same_tree(out, main.native_out, f"--mh-shard {mode}", hidden=mode == "queries")
+        for pid, text in enumerate(texts):
+            c = _counts_lines(text)
+            check(len(c) == 1, f"--mh-shard {mode}: host {pid} wrote {len(c)} counter lines")
+            c = c[0]
+            check(c["twin_calls_on_cuda"] == 0, f"--mh-shard {mode}: a plain version ran")
+            check(c["kernel_launches"] + c["resident_launches"] > 0,
+                  f"--mh-shard {mode}: host {pid} launched no kernel")
+            span = [ln for ln in text.splitlines() if "this is host" in ln]
+            kernel = "K3 (resident)" if c["resident_launches"] else "K1 (slabs)"
+            say(f"[12] --mh-shard {mode}, host {pid}: {kernel}: K1 {c['kernel_launches']}, K3 "
+                f"{c['resident_launches']} launches; {span[0].strip('* ') if span else 'its log goes to os.devnull'}")
+        lines = texts[0].splitlines()
+        table = lines[lines.index("** Phase timings **") + 1:] if "** Phase timings **" in lines else []
+        for ln in table:
+            if ln.startswith("*   "):
+                say(f"[12]   host 0 {ln[4:]}")
+        say(f"[12] --mh-shard {mode}: two processes on one card, {wall:.2f} s wall; {n} files "
+            f"byte-identical to --backend native")
+
+
 def run_phase(tag, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1615,6 +1881,8 @@ def run_phase(tag, fn, *args):
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--counted"]:
+        return counted_cli(argv[1:])
     parent = None
     if argv[:1] == ["--parent"] and len(argv) == 2:
         parent = argv[1]
@@ -1642,6 +1910,8 @@ def main(argv=None) -> int:
         k3_launches, k3_recorded = run_phase("4b", phase_resident_path, main_path, tmp)
         k4 = run_phase("9", phase_sharded, dev, card, main_path, tmp)
         run_phase("10", phase_predict, dev, main_path, tmp)
+        run_phase("11", phase_daemon, main_path, tmp)
+        run_phase("12", phase_multihost, main_path, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     k1 = run_phase("5", phase_main_launches, main_path.recorded, card, "slab", "5")

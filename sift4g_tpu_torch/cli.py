@@ -25,8 +25,15 @@ under ``--backend cuda`` on a host with at least 8 available cores and a
 parse cache, as the JAX package does on an accelerator; ``on`` forces it
 (the CPU tests); an overlapped run never builds the resident database.
 
-What the port does not carry yet is refused with the ROADMAP item that
-will port it: the serve daemon and multi-host runs.
+``--serve SOCKET`` runs the daemon of ``serve.py`` (jobs back to back in
+one warm process), ``--connect SOCKET`` ships the rest of the command
+line to it as a job, and ``--connect SOCKET --shutdown`` stops it; these
+are read before the full parse, as in the JAX CLI.  A multi-host run
+(``SIFT4G_COORDINATOR``/``_NUM_PROCESSES``/``_PROCESS_ID``, or
+``SIFT4G_MULTIHOST=auto`` under ``torchrun``) joins a gloo process group
+after the flags are validated and runs each query file through
+``parallel/multihost.py``, sharded by ``--mh-shard``; every process runs
+on its own devices (``--cards``, or every card it sees).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import sys
 from . import __version__
 from .align import BACKENDS, resolve_backend
 from .core.scorers import create_scorer
+from .parallel.multihost import init_distributed_from_env, run_pipeline_multihost
 from .pipeline import PipelineConfig, ResidentRefused, run_pipeline
 
 
@@ -114,10 +122,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="skip queries whose .SIFTprediction already exists "
                    "in --out (remaining outputs are byte-identical to a full "
                    "run). Incompatible with --sub-results")
+    p.add_argument("--mh-shard", default="db", choices=["db", "queries"],
+                   help="multi-host partition axis: shard the database "
+                   "(merge candidates and winners; few queries x a large "
+                   "database) or shard the queries (each host owns a slice "
+                   "end to end; the many-query missense mode)")
     p.add_argument("--serve", default="", metavar="SOCKET",
-                   help="run as a daemon on this UNIX socket (not ported yet)")
+                   help="run as a long-lived daemon on this UNIX socket, "
+                   "keeping the CUDA context, the kernels and the resident "
+                   "database warm across jobs")
     p.add_argument("--connect", default="", metavar="SOCKET",
-                   help="submit to a --serve daemon (not ported yet)")
+                   help="submit this invocation to a --serve daemon "
+                   "instead of running locally")
+    p.add_argument("--shutdown", action="store_true",
+                   help="with --connect: stop the daemon and exit")
     p.add_argument("--version", action="version", version=f"%(prog)s {__version__}")
     return p
 
@@ -127,21 +145,39 @@ def _fail(msg: str) -> int:
     return -1
 
 
-def _not_ported(what: str, item: int) -> int:
-    return _fail(f"{what} is not ported yet (ROADMAP item {item})")
+def _flag_value(argv, flag):
+    for i, a in enumerate(argv):
+        if a == flag and i + 1 < len(argv):
+            return argv[i + 1]
+        if a.startswith(flag + "="):
+            return a.split("=", 1)[1]
+    return ""
 
 
 def main(argv=None, metrics=None) -> int:
     """Run the CLI; ``metrics`` is an optional ``PhaseMetrics`` the phase
     timings accumulate into (benchmark harnesses read it back)."""
     raw_argv = list(sys.argv[1:] if argv is None else argv)
-    daemon_flags = ("--serve", "--connect", "--shutdown")
-    if any(a == f or a.startswith(f + "=") for a in raw_argv for f in daemon_flags):
-        return _not_ported("the serve daemon (--serve / --connect / --shutdown)", 12)
-    if os.environ.get("SIFT4G_COORDINATOR") or os.environ.get("SIFT4G_MULTIHOST"):
-        return _not_ported("a multi-host run (SIFT4G_COORDINATOR / SIFT4G_MULTIHOST)", 12)
+
+    # daemon and client modes run before the full parse: -q/-d are
+    # required for a pipeline run, but a daemon starts without a job and
+    # a client leaves validation to the daemon
+    serve_sock = _flag_value(raw_argv, "--serve")
+    if serve_sock:
+        from .serve import serve_forever
+
+        return serve_forever(serve_sock)
+    connect_sock = _flag_value(raw_argv, "--connect")
+    if connect_sock:
+        from .serve import _strip_flag, submit
+
+        if "--shutdown" in raw_argv:
+            return submit(connect_sock, [], shutdown=True)
+        return submit(connect_sock, _strip_flag(raw_argv, "--connect"))
 
     args = build_parser().parse_args(raw_argv)
+    if args.shutdown:
+        return _fail("--shutdown requires --connect SOCKET")
 
     if args.cache_dir:
         if not os.path.isdir(args.cache_dir):
@@ -197,6 +233,23 @@ def main(argv=None, metrics=None) -> int:
     except (RuntimeError, ValueError) as exc:
         return _fail(str(exc))
 
+    import torch.distributed as dist
+
+    # a multi-host job?  A group this call creates is left when the run
+    # ends, failed or not: one left open can hang the interpreter at exit
+    owned = not dist.is_initialized()
+    try:
+        host_ctx = init_distributed_from_env()
+    except (RuntimeError, ValueError) as exc:
+        return _fail(f"cannot join the multi-host job: {exc}")
+    try:
+        return _run_files(args, query_files, backend, devices, metrics, host_ctx)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run_files(args, query_files, backend, devices, metrics, host_ctx) -> int:
     for query_path in query_files:
         if len(query_files) > 1:
             print(f"** Processing query file: {query_path} **", file=sys.stderr)
@@ -224,11 +277,15 @@ def main(argv=None, metrics=None) -> int:
             threads=args.threads,
             overlap=args.overlap,
             resident_db=args.resident_db,
+            multihost_shard=args.mh_shard,
             metrics=metrics,
             cards=tuple(int(c) for c in args.cards) or None,
         )
         try:
-            run_pipeline(cfg, devices)
+            if host_ctx is not None:
+                run_pipeline_multihost(cfg, host_ctx, devices)
+            else:
+                run_pipeline(cfg, devices)
         except ResidentRefused as exc:
             return _fail(str(exc))
     return 0

@@ -24,7 +24,10 @@ from the cards' free memory (``_resident_budget``, the smallest among
 them) instead of the fixed 12 GiB of a 16 GB TPU; the database is
 replicated on every card.  ``--resident-db on`` that
 cannot hold the database raises with the reason; it never quietly keeps
-the slab path.
+the slab path.  A multi-host shard (``align_database(record_range=)``,
+``parallel/multihost.py``) streams, slot-packs and uploads only its own
+records; ``PipelineConfig.query_range`` selects a query-sharded host's
+slice before subst validation, as in the JAX package.
 
 The overlapped schedule (``_overlap_cache``, ``_run_overlapped``) scores
 each search chunk's new candidates while the scan goes on, under the JAX
@@ -190,7 +193,17 @@ def _resident_budget(device: torch.device) -> Optional[int]:
     return free_device_bytes(device) - _RESIDENT_HEADROOM
 
 
-def _resident_refusal(mode_flag: str, devices, fs, indices) -> Optional[str]:
+def _shard_offsets(fs, record_range) -> np.ndarray:
+    """The parse cache's absolute offsets of the records in
+    ``record_range`` (all of them when None): the resident layout of a
+    multi-host shard holds that shard only."""
+    if record_range is None:
+        return fs._offsets
+    return fs._offsets[record_range[0] : record_range[1] + 1]
+
+
+def _resident_refusal(mode_flag: str, devices, fs, indices,
+                      record_range=None) -> Optional[str]:
     """Why the align phase keeps the slab path, or None to go resident.
 
     The JAX rule: the parse cache (absolute offsets + mmap codes) and a
@@ -198,14 +211,16 @@ def _resident_refusal(mode_flag: str, devices, fs, indices) -> Optional[str]:
     devices and total candidate bytes above the slotted size (the one-time
     upload must beat the slab traffic it replaces), unless the same
     database is already resident there (its upload is sunk cost).
-    ``devices``: a device or a list of them."""
+    ``devices``: a device or a list of them.  Under a multi-host
+    ``record_range`` only that shard is slotted; ``indices`` stay global."""
     from .align.resident import ResidentDB, distinct_devices, resident_db_cached
 
     if not isinstance(fs, CachedFastaStream):
         return ("the database has no parse cache (.s4gc; check "
                 "SIFT4G_TPU_NO_FASTA_CACHE and that the cache directory is writable)")
     devs = distinct_devices(devices)
-    offsets = fs._offsets
+    offsets = _shard_offsets(fs, record_range)
+    rr_lo = record_range[0] if record_range else 0
     slotted = ResidentDB.slotted_size(offsets)
     budgets = [b for b in (_resident_budget(d) for d in devs) if b is not None]
     budget = min(budgets) if budgets else None
@@ -219,7 +234,7 @@ def _resident_refusal(mode_flag: str, devices, fs, indices) -> Optional[str]:
         if not resident_db_cached(fs._codes, offsets, devs):
             cand_bytes = 0
             for ix in indices:
-                ix = np.asarray(ix, dtype=np.int64)
+                ix = np.asarray(ix, dtype=np.int64) - rr_lo  # shard-local
                 if ix.size:
                     cand_bytes += int((offsets[ix + 1] - offsets[ix]).sum())
             if cand_bytes <= slotted:
@@ -433,18 +448,20 @@ def _run_overlapped(
     return results
 
 
-def _maybe_resident_db(fs, indices, aligner, mode_flag: str, log):
+def _maybe_resident_db(fs, indices, aligner, mode_flag: str, log, record_range=None):
     """Build (or fetch the cached) device-resident database when it pays
     (``_resident_refusal``).  Under "on" a refusal raises
-    :class:`ResidentRefused`; under "auto" it keeps the slab path."""
+    :class:`ResidentRefused`; under "auto" it keeps the slab path.  Under
+    a multi-host ``record_range`` only that shard is slot-packed and
+    uploaded, and the cache keys it by its own record span."""
     from .align.resident import get_resident_db
 
-    reason = _resident_refusal(mode_flag, aligner.devices, fs, indices)
+    reason = _resident_refusal(mode_flag, aligner.devices, fs, indices, record_range)
     if reason is not None:
         if mode_flag == "on":
             raise ResidentRefused(f"--resident-db on: {reason}")
         return None
-    rdb = get_resident_db(fs._codes, fs._offsets, aligner.devices)
+    rdb = get_resident_db(fs._codes, _shard_offsets(fs, record_range), aligner.devices)
     print(
         f"** Align phase uses the HBM-resident database "
         f"({rdb.nbytes / 1e9:.2f} GB slotted) **",
@@ -467,6 +484,7 @@ def align_database(
     chunk_bytes: int = ALIGN_CHUNK_BYTES,
     log=sys.stderr,
     metrics: Optional[PhaseMetrics] = None,
+    record_range=None,
     resident_db: str = "auto",
     threads: int = 0,
     cards: Optional[tuple] = None,
@@ -477,6 +495,10 @@ def align_database(
     ``devices``: the torch devices the scorer runs on (a list, or one
     device); None resolves ``backend`` and ``cards`` (every visible card
     when ``cards`` is None).
+
+    ``record_range=(lo, hi)``: multi-host shard; streams only that record
+    slice, and the caller passes candidate ``indices`` already restricted
+    to the shard (ids stay global).
 
     ``resident_db``: "auto" | "on" | "off" — device-resident scoring
     (upload the slot-packed database codes once; launches ship start and
@@ -492,15 +514,16 @@ def align_database(
     # filter, used by the device screen and the host keep filter alike
     smin_all = [min_passing_score(max_evalue, len(q), evalue_params) for q in queries]
 
-    store = ChunkStore(start=0)
-    with FastaStream(database_path) as fs:
+    rr_lo = record_range[0] if record_range else 0
+    store = ChunkStore(start=rr_lo)
+    with FastaStream(database_path, record_range=record_range) as fs:
         resident = None
         if aligner.backend == "native":
             if resident_db == "on":
                 print("* --resident-db has no effect under --backend native *", file=log)
         elif resident_db != "off":
             t_up = time.perf_counter()
-            resident = _maybe_resident_db(fs, indices, aligner, resident_db, log)
+            resident = _maybe_resident_db(fs, indices, aligner, resident_db, log, record_range)
             if resident is not None and metrics is not None:
                 metrics.add("align.upload", seconds=time.perf_counter() - t_up,
                             bytes=float(resident.nbytes))
@@ -528,7 +551,8 @@ def align_database(
                 if resident is not None:
                     ids = np.asarray(chunk_used[qi], dtype=np.int64)
                     lens_q = (cache_offsets[ids + 1] - cache_offsets[ids]).astype(np.int32)
-                    targets = resident.packed_targets(ids, lens_q)
+                    # the resident layout is shard-local under record_range
+                    targets = resident.packed_targets(ids - rr_lo, lens_q)
                 else:
                     packed = store.pack_latest(chunk_used[qi])
                     if packed is not None:
@@ -699,6 +723,9 @@ def run_pipeline(cfg: PipelineConfig, devices=None) -> List[Chain]:
     log = cfg.log
     metrics = cfg.metrics or PhaseMetrics(log=log, enabled=cfg.timings)
     queries = read_fasta(cfg.query_path)
+    if cfg.query_range is not None:
+        lo, hi = cfg.query_range
+        queries = queries[lo:hi]
     print("** Checking query data and substitutions files **", file=log)
     queries = check_data(queries, cfg.subst_path, log=log)
     if cfg.resume and cfg.out_path:

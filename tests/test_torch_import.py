@@ -1,5 +1,6 @@
-"""The port runs without JAX and without the JAX package, refuses what it
-has not ported, and never falls back to the CPU when asked for the GPU."""
+"""The port runs without JAX and without the JAX package, takes the JAX
+CLI's whole flag surface, and never falls back to the CPU when asked for
+the GPU."""
 
 import os
 import re
@@ -20,9 +21,12 @@ import importlib, os, pkgutil, sys
 sys.modules["jax"] = None          # any "import jax" now raises ImportError
 sys.modules["sift4g_tpu"] = None   # ... and so does any import of the JAX package
 import sift4g_tpu_torch
+walked = []
 for m in pkgutil.walk_packages(sift4g_tpu_torch.__path__, "sift4g_tpu_torch."):
     if m.name != "sift4g_tpu_torch.__main__":
         importlib.import_module(m.name)
+        walked.append(m.name)
+print("WALKED", sorted(walked))
 from sift4g_tpu_torch.cli import main
 d = sys.argv[1]
 rc = main(["--backend", "torch", "-q", os.path.join(d, "queries.fa"),
@@ -58,6 +62,11 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert "LOADED []" in proc.stdout
     assert "JAX_NATIVE_MAPPED False" in proc.stdout
     assert "PORT_NATIVE_MAPPED True" in proc.stdout
+    # the walk imported the daemon and the multi-host harness too
+    walked = proc.stdout.split("WALKED ", 1)[1].splitlines()[0]
+    for mod in ("sift4g_tpu_torch.serve", "sift4g_tpu_torch.parallel.multihost",
+                "sift4g_tpu_torch.native.__main__"):
+        assert repr(mod) in walked
 
 
 def _port_sources():
@@ -148,26 +157,30 @@ def test_cpu_backends_need_no_gpu(no_gpu):
 
 
 @pytest.mark.parametrize(
-    "argv, env, item",
+    "argv, env, expect",
     [
-        (["--serve", "/tmp/s.sock"], {}, 12),
-        (["--connect", "/tmp/s.sock"], {}, 12),
-        (["--shutdown"], {}, 12),
-        ([], {"SIFT4G_COORDINATOR": "localhost:1234"}, 12),
+        (["--shutdown"], {}, "error: --shutdown requires --connect SOCKET"),
+        (["--connect", "{tmp}/missing.sock"], {}, "error: cannot reach daemon at"),
+        ([], {"SIFT4G_COORDINATOR": "127.0.0.1:1", "SIFT4G_NUM_PROCESSES": "1"}, None),
+        (["--mh-shard", "queries"], {}, None),
         (["--predict-backend", "device"], {}, None),
         (["--overlap", "on"], {}, None),
         (["--resident-db", "on"], {}, None),
         (["--cards", "01"], {}, None),
     ],
-    ids=["serve", "connect", "shutdown", "multihost", "device-predict", "overlap", "resident",
-         "two-cards"],
+    ids=["shutdown-without-connect", "connect-missing-socket", "coordinator-one-process",
+         "mh-shard-queries", "device-predict", "overlap", "resident", "two-cards"],
 )
-def test_unported_surface_is_refused(argv, env, item, monkeypatch, capsys, tmp_path):
-    """Each unported flag is refused naming its ROADMAP item; a flag that
-    has since been ported (item None) runs and writes predictions."""
+def test_unported_surface_is_refused(argv, env, expect, monkeypatch, capsys, tmp_path):
+    """Every surface of the JAX CLI is ported.  A misused daemon flag
+    fails with the JAX CLI's error (``expect``); the other flags and
+    environments run an ordinary single-process job and write
+    predictions: a multi-host environment of one process, and
+    ``--mh-shard`` without a multi-host environment, as in the JAX CLI."""
+    argv = [a.replace("{tmp}", str(tmp_path)) for a in argv]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    if item is None:
+    if expect is None:
         from sift4g_tpu_torch.synthetic import main as make_db
 
         make_db([str(tmp_path), "--n-db", "300", "--n-q", "2", "--seed", "4"])
@@ -177,10 +190,13 @@ def test_unported_surface_is_refused(argv, env, item, monkeypatch, capsys, tmp_p
         rc = torch_main([*files, "--backend", "torch", "--out", str(out), *argv])
         assert rc == 0
         err = capsys.readouterr().err
-        assert "not ported" not in err
+        assert "not ported" not in err and "Multi-host" not in err
         if "--resident-db" in argv:
             assert "HBM-resident database" in err
         assert any(p.endswith(".SIFTprediction") for p in os.listdir(out))
+        import torch.distributed as dist
+
+        assert not dist.is_initialized()
         if "--cards" in argv:
             # --backend torch ignores --cards; the default backend (cuda)
             # on a host without a GPU refuses, with or without --cards
@@ -193,7 +209,7 @@ def test_unported_surface_is_refused(argv, env, item, monkeypatch, capsys, tmp_p
     d.write_text(">d\nMKV\n")
     assert torch_main(["-q", str(q), "-d", str(d), "--backend", "torch", *argv]) == -1
     err = capsys.readouterr().err
-    assert f"not ported yet (ROADMAP item {item})" in err and err.startswith("error: ")
+    assert err.startswith(expect)
 
 
 @pytest.mark.parametrize(
