@@ -6,11 +6,11 @@
 ``--parent DIR`` (DIR: another checkout of the port, such as the parent
 commit unpacked with ``git archive``) also imports DIR's package under a
 name of its own, builds DIR's kernels through DIR's own wrappers and
-times its K1, K3 and K4 beside this checkout's, in turns (parent, this,
-this, parent) on the same inputs, in phases 3, 3b, 5, 5b and 9b (and
-prints, in phase 1, which scorer kernels' SASS is the parent's): K1 and K3
-must stay within 3 % of the parent's in phases 3, 5 and 5b, and K4 must be
-faster than the parent's in 9b.
+times its K1, K3, K4 and K5 beside this checkout's, in turns (parent,
+this, this, parent) on the same inputs, in phases 3, 3b, 5, 5b, 6 and 9b
+(and prints, in phase 1, which scorer kernels' and K6's SASS is the
+parent's): K1, K3 and K4 must stay within 3 % of the parent's in phases
+3, 5, 5b and 9b, and K5 must be faster than the parent's in 6.
 
 Phases, in order; the first failure ends the run with a non-zero exit:
 
@@ -63,19 +63,33 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    targets of 35,008, a 360-residue query each, exact against the plain
    version (the first at every forced T) and timed; K1 must be no slower
    than its plain version there;
-6. K5, the row-engine probe, against its plain version, exact (the JAX
-   shape B=1024 N=512 at 300 rows, B=65,536 at 64 rows, a ragged N=200
-   with gaps 11/2); then the marginal rate at B=1024 and at the bench
-   launch's B=65,536 with the card's clocks and power;
+6. K5, the row-engine probe (columns in registers, query rows streamed
+   through a lane wavefront), against its plain version, exact: the JAX
+   shape B=1024 N=512 at 300 rows and at the bench's 16,000
+   (``bench.B1024_ROWS``), B=65,536 at 64 rows, a ragged N=200
+   with gaps 11/2, B=2048 N=1100 at 600 rows; then its strip and
+   wavefront edges: N in {1, 15, 16, 17, 511, 512, 513, 1100, 6144} x
+   rows in {0, 1, 2, 31, 32, 33} x gaps 10/1, 11/2 and 1/3 (go < ge) x
+   (B, salt) in {(1, 2^20), (33, -2^20), (33, 5)}, and past one strip
+   rows 511, 512, 513 and 1025 around the row tiles.  Then K5 timed at
+   the bench's shape (B=65,536 N=512, 360 rows), that launch exact
+   against its plain version, beside its operations
+   bound, K1's bench-launch rate (phase 3) over K5's, K5 at B=1024 at
+   1,000, 4,000 and 16,000 rows, the opcodes of every loop of K5 that
+   runs whole step pairs (from ``cuobjdump -sass``; the steady-state loop
+   must hold a fused ``VIADDMNMX``), and the bench's marginal rates (B=1024
+   over ``bench.B1024_ROWS``, B=65,536 over ``bench.B65536_ROWS``) with
+   the card's clocks and power;
 7. K6, the int32 probes, against their plain version for 1, 2 and 4
    pairs, exact; then ``bench_ab roofline``,
    ``roofline2`` and ``roofline4`` (counted: these are K6's path), each
    rate beside the card's peak int32 rate as a check of it, and the
    opcodes of each variant's loop from ``cuobjdump -sass``.  The
-   operations bound of every kernel divides by that peak (2 operations
-   per fused add-and-max instruction x 64 instructions per clock per SM x
-   SMs x the maximum SM clock), or by K6's measured rate should that be
-   higher;
+   operations bound of every kernel divides the max-family instructions
+   its work needs (``roofline.MAX_INSTRUCTIONS_PER_CELL`` a DP cell: 4.5
+   in SW, 4 in the other modes; 2 per element and round of K6) by the
+   card's peak max-family rate (64 a clock per SM x SMs x the maximum SM
+   clock), or by K6's measured rate should that be higher;
 8. the bench twin end to end (``python -m sift4g_tpu_torch.bench`` in a
    subprocess with JAX and the JAX package unimportable): its record must
    name the card, be within 10 % of phase 3's K1 rate and have
@@ -170,6 +184,7 @@ import contextlib  # noqa: E402
 import filecmp  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import re  # noqa: E402
 import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
@@ -212,17 +227,14 @@ K6 = {
 }
 # H100 SXM device memory bandwidth from NVIDIA's datasheet
 HBM_BYTES_PER_S = 3.35e12
-# the int32 add/sub/max rate the operations bounds divide by: the card's
-# peak (phase 1), raised in phase 7 to K6's measured rate should that be
-# higher
-INT32 = {"ops_per_s": None, "src": ""}
-# int32 add/sub/max of one DP cell in the kernels' recurrence (F 3, G 2,
-# E 3, H 1, and the SW zero floor and running best)
-OPS_PER_CELL = {"SW": 11, "NW": 9, "HW": 9, "OV": 9}
-# the K1/K3/K4 wrappers of --parent DIR (load_parent), or None
+# the int32 max-family instructions a second the operations bounds divide
+# by: the card's peak (phase 1), raised in phase 7 to K6's measured rate
+# should that be higher
+INT32 = {"per_s": None, "src": ""}
+# the K1/K3/K4/K5 wrappers of --parent DIR (load_parent), or None
 PARENT = {"k": None}
-# K1 and K3 (and the kernels of --parent DIR) within this share of the
-# parent's time in turns
+# K1, K3 and K4 (and the kernels of --parent DIR) within this share of
+# the parent's time in turns
 PARENT_TOLERANCE = 0.03
 
 
@@ -332,9 +344,9 @@ def phase_build():
             say(f"[1]   ptxas: {line.strip()}")
     from sift4g_tpu_torch.align import roofline
 
-    rate, how = roofline.int32_peak_rate()
-    INT32.update(ops_per_s=rate, src=f"peak, {how}")
-    say(f"[1] int32 rate of the operations bounds: {INT32['src']}")
+    rate, how = roofline.int32_max_rate()
+    INT32.update(per_s=rate, src=f"peak, {how}")
+    say(f"[1] int32 max-family rate of the operations bounds: {INT32['src']}")
     from sift4g_tpu_torch import native
 
     t0 = time.perf_counter()
@@ -579,7 +591,7 @@ def check_unmoved(what, parent_ms, this_ms):
 
 
 def load_parent(root):
-    """The K1, K3 and K4 wrappers of another checkout of the port at
+    """The K1, K3, K4 and K5 wrappers of another checkout of the port at
     ``root``, its package imported under a name of its own: they build
     that checkout's kernels into its own build directory, bind them with
     its own C signatures and count launches in its own counters."""
@@ -594,24 +606,31 @@ def load_parent(root):
     sys.modules[name] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sys.modules[name])
     sw = importlib.import_module(f"{name}.align.sw_grouped")
+    probes = importlib.import_module(f"{name}.align.roofline")
     build = importlib.import_module(f"{name}.align._build")
     build.load()
     return SimpleNamespace(k1=sw.sw_scores_grouped, k3=sw.sw_scores_grouped_resident,
-                           k4=sw.sw_scores_single, library=build.library_path())
+                           k4=sw.sw_scores_single, k5=probes.dp_row_probe,
+                           library=build.library_path())
 
 
 def sass_against_parent():
-    """Each scorer kernel of this tree's library and of the parent's, its
-    SASS instruction count, and whether it is the parent's instruction for
-    instruction (a kernel whose source this tree leaves alone keeps it)."""
+    """Each scorer kernel and K6 of this tree's library and of the
+    parent's, its SASS instruction count, and whether it is the parent's
+    instruction for instruction (a kernel whose source this tree leaves
+    alone keeps it)."""
     from sift4g_tpu_torch.align import roofline
 
     this, par = roofline.library_sass(), roofline.library_sass(PARENT["k"].library)
     if this is None or par is None:
         say("[1] SASS: cuobjdump not found; not compared with the parent's")
         return
-    this, par = roofline.sass_instructions(this), roofline.sass_instructions(par)
-    for name in sorted(n for n in set(this) | set(par) if "sw_" in n):
+    # a kernel in an anonymous namespace (K6) is mangled with a hash that
+    # differs from build to build
+    anon = re.compile(r"\d+_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
+    this, par = ({anon.sub("_GLOBAL__N_", k): v for k, v in roofline.sass_instructions(x).items()}
+                 for x in (this, par))
+    for name in sorted(n for n in set(this) | set(par) if "sw_" in n or "int32_probe" in n):
         if name not in this:
             say(f"[1] SASS {name}: only in the parent's library")
         elif name not in par:
@@ -679,7 +698,7 @@ def phase_long_rungs(dev, card):
 
         ms = _time_ms(k1, iters=5, warmup=1)
         plain_ms = _time_ms(lambda: scan.align_scores_grouped(*args, m32), iters=1, warmup=0)
-        nbytes, ops, true = _work("slab", args, {"mode": "SW"})
+        nbytes, insns, true = _work("slab", args, {"mode": "SW"})
         T, block = sw_grouped.launch_geometry(1, B, N, dev)
         say(f"[3b] {name} G=1 B={B} N={N} m=360 ({true / 1e9:.3f} G cells), {card}: K1 "
             f"{ms:.3f} ms = {true / ms / 1e6:.3f} GCUPS at (T, block) = ({T}, {block}); plain "
@@ -690,7 +709,7 @@ def phase_long_rungs(dev, card):
         if PARENT["k"]:
             parent_turns("3b", f"K1 at the {name} shape", k1,
                          lambda: PARENT["k"].k1(*args, m32), 1, card, true)
-        rows.append(dict(name=name, B=B, N=N, ms=ms, plain_ms=plain_ms, work=(nbytes, ops),
+        rows.append(dict(name=name, B=B, N=N, ms=ms, plain_ms=plain_ms, work=(nbytes, insns),
                          T=T))
     return rows
 
@@ -915,18 +934,18 @@ def phase_resident_path(main, tmp):
     return c_cold["resident_launches"], recorded
 
 
-def _bound(nbytes, ops):
+def _bound(nbytes, insns):
     """(bound_ms, bound_by): the larger of ``nbytes`` at the memory rate
-    and ``ops`` at the int32 rate in force."""
+    and ``insns`` max-family instructions at the int32 rate in force."""
     ms_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    ms_ops = ops / INT32["ops_per_s"] * 1e3
+    ms_ops = insns / INT32["per_s"] * 1e3
     return max(ms_bytes, ms_ops), ("bytes" if ms_bytes >= ms_ops else "operations")
 
 
 def _work(kind, args, kw):
-    """(bytes, int32 operations, true cells) of one K1/K3 launch from its
-    inputs: each input byte read once and the output written once, and
-    the true cells' int32 add/sub/max."""
+    """(bytes, max-family instructions, true cells) of one K1/K3 launch
+    from its inputs: each input byte read once and the output written
+    once, and the true cells' max-family instructions."""
     q_all, q_lens = args[0], args[2]
     if kind == "slab":
         targets, lens = args[3], args[4]
@@ -938,7 +957,9 @@ def _work(kind, args, kw):
         row_bytes = int(lens.long().sum()) + 8 * starts.numel()
     true = int((q_lens.long() * lens.long().sum(dim=1)).sum())
     nbytes = row_bytes + 4 * (q_all.numel() + 2 * G + 2 * G * B) + 4 * 32 * 32
-    return nbytes, true * OPS_PER_CELL[kw["mode"]], true
+    from sift4g_tpu_torch.align.roofline import MAX_INSTRUCTIONS_PER_CELL
+
+    return nbytes, true * MAX_INSTRUCTIONS_PER_CELL[kw["mode"]], true
 
 
 def phase_main_launches(recorded, card, kind, tag):
@@ -979,7 +1000,7 @@ def phase_main_launches(recorded, card, kind, tag):
     say(f"[{tag}] largest main-path launch G={G} B={B} N={N}, {card}: kernel {ms:.3f} ms = "
         f"{padded / ms / 1e6:.2f} GCUPS padded, {true / ms / 1e6:.2f} true, at (T, block) = "
         f"({T}, {block}); plain {plain_ms:.3f} ms; bound {bound_ms:.3f} ms ({bound_by}, at the "
-        f"peak int32 rate; recomputed at the end after phase 7's check); design bound "
+        f"peak max-family rate; recomputed at the end after phase 7's check); design bound "
         f"({per_cell:.4f} B/cell at 3.35 TB/s) {true * per_cell / HBM_BYTES_PER_S * 1e3:.3f} ms")
     if PARENT["k"]:
         par = PARENT["k"].k1 if kind == "slab" else PARENT["k"].k3
@@ -1000,38 +1021,113 @@ def phase_main_launches(recorded, card, kind, tag):
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, work=work, T=T)
 
 
-def phase_dp_row(dev, card):
-    """K5 against its plain version, exact, then its marginal rates."""
+# K5's strip and wavefront edges (tests/test_torch_gpu.py holds the same):
+# widths around one lane's 16 columns, one strip of 512 and several, rows
+# around the wavefront's 32 lanes, gaps with go < ge, salts at the
+# argument limit (small M keeps every value inside int32), B = 1 and 33
+DP_ROW_EDGE_N = (1, 15, 16, 17, 511, 512, 513, 1100, 6144)
+DP_ROW_EDGE_M = (0, 1, 2, 31, 32, 33)
+DP_ROW_EDGE_GAPS = ((10, 1), (11, 2), (1, 3))
+DP_ROW_EDGE_RUNS = ((1, 1 << 20), (33, -(1 << 20)), (33, 5))
+# rows around the row tiles (512) of a row wider than one strip
+DP_ROW_TILE_M = (511, 512, 513, 1025)
+
+
+def dp_row_edge_cases(N):
+    """(B, N, M, go, ge, salt) of K5's edges at width N."""
+    cases = [(B, N, M, go, ge, salt) for M in DP_ROW_EDGE_M for go, ge in DP_ROW_EDGE_GAPS
+             for B, salt in DP_ROW_EDGE_RUNS]
+    if N > 512:
+        cases += [(5, N, M, go, ge, 3) for M in DP_ROW_TILE_M for go, ge in ((10, 1), (1, 3))]
+    return cases
+
+
+def phase_dp_row(dev, card, k1_gcups):
+    """K5 against its plain version, exact, at its strip and wavefront
+    edges; then timed at the bench's shape (against the parent's K5 under
+    --parent), its loop's opcodes, and its marginal rates."""
     import torch
+    from sift4g_tpu_torch import bench
     from sift4g_tpu_torch.align import roofline
 
-    max_err = 0
-    for B, N, M, go, ge, salt in ((1024, 512, 300, 10, 1, 3), (65536, 512, 64, 10, 1, -7),
-                                  (1024, 200, 150, 11, 2, 5)):
+    max_err, n = 0, 0
+    t0 = time.perf_counter()
+    cases = [(1024, 512, 300, 10, 1, 3), (65536, 512, 64, 10, 1, -7), (1024, 200, 150, 11, 2, 5),
+             (2048, 1100, 600, 11, 2, 9)]
+    # the bench's B=1024 probe at its most rows (B=65,536 is held below, where it is timed)
+    cases.append((1024, 512, bench.B1024_ROWS[1], 10, 1, 11))
+    cases += [c for N in DP_ROW_EDGE_N for c in dp_row_edge_cases(N)]
+    for B, N, M, go, ge, salt in cases:
         got = roofline.dp_row_probe(M, salt, B=B, N=N, go=go, ge=ge, device=dev)
         ref = roofline.dp_row_probe_plain(M, salt, B=B, N=N, go=go, ge=ge, device=dev)
         torch.cuda.synchronize()
+        what = f"K5 B={B} N={N} M={M} gaps {go}/{ge} salt {salt}"
+        check(got.shape == (B,) and got.dtype == torch.int32, f"{what}: shape/dtype")
         err = int((got.long() - ref.long()).abs().max())
         max_err = max(max_err, err)
-        check(got.shape == (B,) and got.dtype == torch.int32, f"K5 B={B} N={N}: shape/dtype")
-        check(err == 0, f"K5 B={B} N={N} M={M}: differs from its plain version by {err}")
-        check(bool((got == got[0]).all()), f"K5 B={B} N={N}: rows differ")
-        say(f"[6] K5 B={B} N={N} M={M} gaps {go}/{ge} salt {salt}: kernel == plain "
-            f"(max |diff| 0, best cell {int(got[0])})")
-    # the bench's ceiling launch: the bench launch's thread count and rows
-    B, N, M = 65536, 512, 360
-    ms = _time_ms(lambda: roofline.dp_row_probe(M, 11, B=B, N=N, device=dev), iters=3, warmup=1)
-    plain_ms = _time_ms(lambda: roofline.dp_row_probe_plain(M, 11, B=B, N=N, device=dev),
+        check(err == 0, f"{what}: differs from its plain version by {err}")
+        check(bool((got == got[0]).all()), f"{what}: rows differ")
+        if n < 4:
+            say(f"[6] {what}: kernel == plain (max |diff| 0, best cell {int(got[0])})")
+        n += 1
+    say(f"[6] K5 == plain (max |diff| 0) on {n} launches: N in {DP_ROW_EDGE_N}, M in "
+        f"{DP_ROW_EDGE_M} (and {DP_ROW_TILE_M} past one strip), gaps {DP_ROW_EDGE_GAPS}, "
+        f"(B, salt) in {DP_ROW_EDGE_RUNS}; {time.perf_counter() - t0:.2f} s")
+    # the bench's shape: the bench launch's cells a query row, its rows
+    B, N, M = 65536, 512, bench.B65536_ROWS[1]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def kernel():
+        return roofline.dp_row_probe(M, 11, B=B, N=N, device=dev)
+
+    ms = _time_ms(kernel, iters=5, warmup=1)
+    ref = []
+    plain_ms = _time_ms(lambda: ref.append(roofline.dp_row_probe_plain(M, 11, B=B, N=N,
+                                                                       device=dev)),
                         iters=1, warmup=0)
+    got = kernel()
+    torch.cuda.synchronize()
+    err = int((got.long() - ref[0].long()).abs().max())
+    max_err = max(max_err, err)
+    check(err == 0, f"K5 B={B} N={N} M={M}: the timed launch differs from its plain version "
+                    f"by {err}")
+    del ref
     cells = B * N * M
-    say(f"[6] K5 B={B} N={N} M={M}, {card}: kernel {ms:.3f} ms = {cells / ms / 1e6:.2f} GCUPS; "
-        f"plain {plain_ms:.3f} ms")
-    for rows, kw in ((1024, {}), (B, dict(lo=120, hi=M))):
-        r = roofline.dp_row_roofline(B=rows, N=N, device=dev, **kw)
-        say(f"[6] dp_row_roofline B={rows} N={N} rows {kw.get('lo', 1000)} -> "
-            f"{kw.get('hi', 4000)}: {r['gcups']:.3f} GCUPS marginal, t_lo {r['t_lo_s']:.6f} s, "
-            f"t_hi {r['t_hi_s']:.6f} s; card {roofline.gpu_state()}")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, work=(4 * B, cells * 11))
+    insns = cells * roofline.MAX_INSTRUCTIONS_PER_CELL["SW"]
+    bound_ms, bound_by = _bound(4 * B, insns)
+    gcups = cells / ms / 1e6
+    say(f"[6] K5 B={B} N={N} M={M} ({cells / 1e9:.2f} G cells), {card}: kernel {ms:.3f} ms = "
+        f"{gcups:.2f} GCUPS at (T, C, block, strips) = {roofline.dp_row_geometry(B, N, sms)}, "
+        f"== plain (max |diff| 0); plain {plain_ms:.3f} ms; bound {bound_ms:.3f} ms "
+        f"({bound_by}: {insns / 1e9:.2f} G max-family instructions at "
+        f"{INT32['per_s'] / 1e12:.3f} T/s; the kernel at {100 * bound_ms / ms:.1f} % of it); "
+        f"design bound 0 bytes per cell (the (B,) output only)")
+    say(f"[6] K1 at the bench launch (phase 3) over K5 at its shape: {k1_gcups:.2f} / "
+        f"{gcups:.2f} GCUPS = {k1_gcups / gcups:.3f}")
+    if PARENT["k"]:
+        par, this = parent_turns("6", f"K5 at B={B} N={N} M={M}", kernel,
+                                 lambda: PARENT["k"].k5(M, 11, B=B, N=N, device=dev), 3, card,
+                                 cells)
+        check(this < par, f"K5 ({this:.3f} ms) is not faster than the parent's ({par:.3f} ms)")
+    for rows in (1000, 4000, bench.B1024_ROWS[1]):
+        t = _time_ms(lambda: roofline.dp_row_probe(rows, 11, B=1024, N=N, device=dev), iters=5,
+                     warmup=1)
+        say(f"[6] K5 B=1024 N={N} M={rows}: {t:.4f} ms = {1024 * N * rows / t / 1e6:.2f} GCUPS")
+    sass = roofline.dp_row_probe_sass()
+    if sass is None:
+        say("[6] SASS: cuobjdump not found; loop opcodes not read")
+    for fn, loops in sorted((sass or {}).items()):
+        check(loops and loops[0][0].get("VIADDMNMX", 0) > 0,
+              f"K5 {fn}: the steady-state loop has no fused VIADDMNMX")
+        for k, (opcodes, per) in enumerate(loops):
+            say(f"[6] SASS loop {k} of K5 {'wide' if 'ILb1E' in fn else 'one strip'}: "
+                f"{per:.3f} instructions per cell, {dict(opcodes)}")
+    for rows, (lo, hi) in ((1024, bench.B1024_ROWS), (B, bench.B65536_ROWS)):
+        r = roofline.dp_row_roofline(B=rows, N=N, lo=lo, hi=hi, device=dev)
+        say(f"[6] dp_row_roofline B={rows} N={N} rows {lo} -> {hi}: {r['gcups']:.3f} GCUPS "
+            f"marginal, t_lo {r['t_lo_s']:.6f} s, t_hi {r['t_hi_s']:.6f} s; card "
+            f"{roofline.gpu_state()}")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, work=(4 * B, insns))
 
 
 def phase_int32(dev, card):
@@ -1063,7 +1159,8 @@ def phase_int32(dev, card):
     records = [bench_ab.run_roofline(pairs=pairs, device=dev) for pairs in roofline.INT32_PAIRS]
     launches = roofline.int32_launches
     check(launches > 0, "bench_ab roofline launched K6 no time")
-    peak = INT32["ops_per_s"]
+    # K6's loop is all fused VIADDMNMX: 2 operations a max-family instruction
+    peak = roofline.OPS_PER_FUSED_INSTRUCTION * INT32["per_s"]
     for rec in records:
         ips = rec["instr_per_s"]
         say(f"[7] bench_ab {rec['metric']}: {rec['tops']:.3f} T int32 ops/s "
@@ -1083,12 +1180,12 @@ def phase_int32(dev, card):
     say(f"[7] check of the peak: K6's best, {best['metric']}, {best['tops']:.3f} T ops/s, is "
         f"{100 * best['tops'] * 1e12 / peak:.1f} % of the peak {peak / 1e12:.3f} T ops/s")
     if best["tops"] * 1e12 > peak:
-        INT32.update(ops_per_s=best["tops"] * 1e12,
+        INT32.update(per_s=best["tops"] * 1e12 / roofline.OPS_PER_FUSED_INSTRUCTION,
                      src=f"K6 measured, {best['metric']} at {best['tops']:.3f} T ops/s, above "
                          f"the peak {peak / 1e12:.3f} T")
-    say(f"[7] int32 rate of the operations bounds: {INT32['ops_per_s'] / 1e12:.3f} T ops/s, "
+    say(f"[7] int32 max-family rate of the operations bounds: {INT32['per_s'] / 1e12:.3f} T/s, "
         f"{INT32['src']}")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, work=(4 * B, 4 * B * N * M),
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, work=(4 * B, 2 * B * N * M),
                 launches=launches)
 
 
@@ -1232,6 +1329,7 @@ def phase_single_timing(dev, card):
     """9b: K4 at full width (K5's bench shape), kernel and plain version
     timed with CUDA events."""
     from sift4g_tpu_torch.align import scan, sw_grouped
+    from sift4g_tpu_torch.align.roofline import MAX_INSTRUCTIONS_PER_CELL
 
     B, N, m = 65536, 512, 360
     rng = np.random.default_rng(44)
@@ -1250,21 +1348,22 @@ def phase_single_timing(dev, card):
     plain_ms = _time_ms(plain, iters=2, warmup=1)
     cells = int(tl.long().sum()) * m
     nbytes = 4 * (t.numel() + tl.numel() + q.numel() + B + 32 * 32)
-    ops = cells * OPS_PER_CELL["SW"]
-    bound_ms, bound_by = _bound(nbytes, ops)
+    insns = cells * MAX_INSTRUCTIONS_PER_CELL["SW"]
+    bound_ms, bound_by = _bound(nbytes, insns)
     T, block = sw_grouped.launch_geometry(1, B, N, dev)
     per_cell = tiled_bytes_per_cell(T, code_bytes=4)
     say(f"[9b] K4 B={B} N={N} m={m} ({cells / 1e9:.2f} G cells), {card}: kernel {ms:.3f} ms = "
         f"{cells / ms / 1e6:.2f} GCUPS at (T, block) = ({T}, {block}); plain {plain_ms:.3f} ms; "
         f"bound {bound_ms:.3f} ms ({bound_by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s, "
-        f"{ops / 1e9:.2f} G int32 ops at {INT32['ops_per_s'] / 1e12:.3f} T/s; the kernel at "
-        f"{100 * bound_ms / ms:.1f} % of it); design bound ({per_cell:.4f} B/cell at 3.35 TB/s) "
+        f"{insns / 1e9:.2f} G max-family instructions at {INT32['per_s'] / 1e12:.3f} T/s; the "
+        f"kernel at {100 * bound_ms / ms:.1f} % of it); design bound ({per_cell:.4f} B/cell at "
+        f"3.35 TB/s) "
         f"{cells * per_cell / HBM_BYTES_PER_S * 1e3:.3f} ms; kernel == plain (max |diff| 0)")
     if PARENT["k"]:
-        par, this = parent_turns("9b", f"K4 at B={B} N={N} m={m}", kernel,
-                                 lambda: PARENT["k"].k4(q, m, t, tl, m32), 10, card, cells)
-        check(this < par, f"K4 ({this:.3f} ms) is not faster than the parent's ({par:.3f} ms)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, work=(nbytes, ops))
+        check_unmoved(f"K4 at B={B} N={N} m={m}", *parent_turns(
+            "9b", f"K4 at B={B} N={N} m={m}", kernel, lambda: PARENT["k"].k4(q, m, t, tl, m32),
+            10, card, cells))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, work=(nbytes, insns))
 
 
 def _top(x, k):
@@ -1919,7 +2018,7 @@ def main(argv=None) -> int:
     above = sum(1 for args, _, _ in main_path.recorded if args[3].shape[2] > 4096)
     say(f"[5] K1 launches above the 4096-wide rung in phase 4's run: {above} of "
         f"{main_path.launches}")
-    k5 = run_phase("6", phase_dp_row, dev, card)
+    k5 = run_phase("6", phase_dp_row, dev, card, k1_gcups)
     k6 = run_phase("7", phase_int32, dev, card)
     bench = run_phase("8", phase_bench, card, k1_gcups)
     k1["max_abs_err"] = max(k1["max_abs_err"], err_k1)
@@ -1938,7 +2037,7 @@ def main(argv=None) -> int:
         kernels.append(dict(meta, launches=launches, max_abs_err=k["max_abs_err"], ms=k["ms"],
                             plain_ms=k["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=None))
-    say(f"[bound] int32 rate {INT32['ops_per_s'] / 1e12:.3f} T ops/s ({INT32['src']}); "
+    say(f"[bound] int32 max-family rate {INT32['per_s'] / 1e12:.3f} T/s ({INT32['src']}); "
         f"memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
     say(json.dumps({"kernels": kernels}))
     say(card_line())

@@ -110,8 +110,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sift4g_dp_row_probe.argtypes = [
         i32, i32, i32, i32,       # B, N, M, salt
         i32, i32,                 # go, ge
+        i32, i32, i32,            # lanes a row, strips, block
         vp, vp, vp,               # scratch, out, stream
     ]
+    lib.sift4g_dp_row_scratch_bytes.restype = ctypes.c_longlong
+    lib.sift4g_dp_row_scratch_bytes.argtypes = [i32, i32]   # B, strips
     lib.sift4g_int32_probe.restype = i32
     lib.sift4g_int32_probe.argtypes = [
         i32, i32, i32, i32,       # B, N, M, salt

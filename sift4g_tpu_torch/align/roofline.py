@@ -3,7 +3,10 @@
 ``dp_row_probe`` (K5) is the port of the kernel in
 ``sift4g_tpu/align/roofline.py:dp_row_roofline``: B rows, each the same
 M-row local-alignment recurrence over N columns with salted column
-scores, and each row's best cell as the (B,) int32 result.
+scores, and each row's best cell as the (B,) int32 result.  Its kernel
+holds a row's columns in the registers of T lanes and streams the query
+rows through them as a wavefront; ``dp_row_geometry`` picks T and the
+block from the launch's shape.
 ``int32_probe`` (K6) is the port of the kernels in ``tools/bench_ab.py``
 ``run_roofline`` (``pairs=1``) and ``run_roofline_ilp``: M rounds of
 ``(a, b) = (max(a + 1, b), max(b - 1, a))`` on ``pairs`` (B, N) int32
@@ -32,13 +35,16 @@ import shutil
 import subprocess
 import time
 from collections import Counter
+from functools import lru_cache
 
 import torch
 
 from . import _build
 
 NEGL = -(10 ** 7)            # roofline.py: F on the top row, the shifted-in value
-MAX_DP_ROW_N = 6144          # the two column-score rows fill 48 KB of shared memory
+MAX_DP_ROW_N = 6144          # the widest row K5 takes: 12 strips of 512 columns
+DP_ROW_COLS = 16             # columns a lane holds (kCols of csrc/dp_row_roofline.cu)
+DP_ROW_MAX_BLOCK = 128        # the largest block (kMaxBlock)
 MAX_ARG = 1 << 20            # |salt|, go, ge: keeps every value inside int32
 MAX_ROUNDS = 1 << 28
 INT32_PAIRS = (1, 2, 4)
@@ -53,6 +59,13 @@ INT32_RATE_SOURCE = (
 # operations counted per fused instruction: nvcc fuses max(x + c, y) into
 # one VIADDMNMX on sm_90a, which does the add and the max
 OPS_PER_FUSED_INSTRUCTION = 2
+# max-family instructions (VIMNMX, VIMNMX3, VIADDMNMX) one DP cell needs
+# on sm_90a: F, G (its zero floor fused), E, H and, in SW mode, the
+# running best, which the three-input VIMNMX3 takes two cells at a time.
+# The cell's adds fuse into them or issue beside them on another pipe (on
+# an H100, K5 issues 90 int32 instructions a clock per SM, 60 of them
+# max-family), so these at INT32_RESULTS_PER_SM_CLOCK bound the cell.
+MAX_INSTRUCTIONS_PER_CELL = {"SW": 4.5, "NW": 4, "HW": 4, "OV": 4}
 
 dp_row_launches = 0
 int32_launches = 0
@@ -134,9 +147,40 @@ def dp_row_probe_plain(m, salt, *, B=1024, N=512, go=10, ge=1, device="cpu"):
     return best
 
 
+def dp_row_geometry(B: int, N: int, sm_count: int):
+    """(T, C, block, strips) of a K5 launch of B rows of N columns on a
+    card of ``sm_count`` SMs: T lanes a row, each holding C =
+    ``DP_ROW_COLS`` columns, ``block`` threads a block, and the strips of
+    T x C columns a row takes.
+
+    T is the smallest power of two whose T x C columns cover N, at most
+    32 (one warp a row); a wider row takes several strips of 512 columns.
+    The block holds ``DP_ROW_MAX_BLOCK`` threads, halved down to one warp
+    while the launch would leave SMs without a block (as
+    ``sw_grouped.tile_geometry``)."""
+    if B <= 0 or N <= 0:
+        raise ValueError(f"dp_row_geometry: B and N must be positive, got B={B} N={N}")
+    if N > MAX_DP_ROW_N:
+        raise ValueError(f"dp_row_probe: N={N} exceeds {MAX_DP_ROW_N}")
+    C = DP_ROW_COLS
+    T = 1
+    while T < 32 and T * C < N:
+        T *= 2
+    block = DP_ROW_MAX_BLOCK
+    while block > 32 and -(-B * T // block) < sm_count:
+        block //= 2
+    return T, C, block, -(-N // (T * C))
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def dp_row_probe(m, salt, *, B=1024, N=512, go=10, ge=1, device="cuda", out=None):
     """(B,) int32: each row's best cell after ``m`` query rows (K5).  On
-    a CUDA device it launches the kernel, into ``out`` when given."""
+    a CUDA device it launches the kernel, into ``out`` when given; a row
+    of one strip (N <= 512) needs no scratch."""
     dev = _device(device)
     m, salt, go, ge = int(m), int(salt), int(go), int(ge)
     _check_args("dp_row_probe", m, salt, B, N, go, ge)
@@ -150,12 +194,16 @@ def dp_row_probe(m, salt, *, B=1024, N=512, go=10, ge=1, device="cuda", out=None
     if dev.type != "cuda":
         raise ValueError(f"dp_row_probe runs on cpu or cuda, not {dev}")
     lib = _build.load()
+    T, _, block, strips = dp_row_geometry(B, N, _sm_count(dev.index))
     if out is None:
         out = torch.empty(B, dtype=torch.int32, device=dev)
-    scratch = torch.empty((N, B, 2), dtype=torch.int32, device=dev)
+    # each strip's bottom (H, F) row between row tiles, laid out by the kernel
+    nbytes = lib.sift4g_dp_row_scratch_bytes(B, strips)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.sift4g_dp_row_probe(B, N, m, salt, go, ge, scratch.data_ptr(),
+        rc = lib.sift4g_dp_row_probe(B, N, m, salt, go, ge, T, strips, block,
+                                     None if scratch is None else scratch.data_ptr(),
                                      out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"dp_row_probe kernel launch failed: CUDA error {rc}")
@@ -306,19 +354,28 @@ def gpu_state() -> dict:
     return dict(zip(keys, nvidia_smi(",".join(keys))))
 
 
+def int32_max_rate(device="cuda"):
+    """(instructions/s, how it was computed): the card's peak rate of
+    int32 max-family instructions at its maximum SM clock, the documented
+    int32 min/max rate.  The operations bounds divide a kernel's
+    max-family instructions (``MAX_INSTRUCTIONS_PER_CELL``) by it."""
+    dev = require_cuda(device)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = float(nvidia_smi("clocks.max.sm")[0].split()[0])
+    rate = INT32_RESULTS_PER_SM_CLOCK * sms * mhz * 1e6
+    how = (f"{INT32_RESULTS_PER_SM_CLOCK} max-family instructions/clock/SM x {sms} SMs x "
+           f"{mhz:g} MHz (clocks.max.sm) = {rate / 1e12:.3f} T/s; {INT32_RATE_SOURCE}")
+    return rate, how
+
+
 def int32_peak_rate(device="cuda"):
     """(ops/s, how it was computed): the card's peak rate of int32 adds and
     maxes counted one operation each, at its maximum SM clock: the
     documented int32 instruction rate, every instruction a fused
-    add-and-max."""
-    dev = require_cuda(device)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    mhz = float(nvidia_smi("clocks.max.sm")[0].split()[0])
-    rate = OPS_PER_FUSED_INSTRUCTION * INT32_RESULTS_PER_SM_CLOCK * sms * mhz * 1e6
-    how = (f"{OPS_PER_FUSED_INSTRUCTION} ops per fused VIADDMNMX (an add and a max) x "
-           f"{INT32_RESULTS_PER_SM_CLOCK} instructions/clock/SM x {sms} SMs x {mhz:g} MHz "
-           f"(clocks.max.sm) = {rate / 1e12:.3f} T ops/s; {INT32_RATE_SOURCE}")
-    return rate, how
+    add-and-max (K6's loop)."""
+    rate, how = int32_max_rate(device)
+    return (OPS_PER_FUSED_INSTRUCTION * rate,
+            f"{OPS_PER_FUSED_INSTRUCTION} ops per fused VIADDMNMX (an add and a max) x {how}")
 
 
 # ---------------------------------------------------------------- SASS
@@ -335,11 +392,10 @@ def _n_max(ops: Counter) -> int:
     return sum(v for k, v in ops.items() if k in MAX_OPCODES)
 
 
-def sass_loops(text: str) -> dict:
-    """{function: opcode Counter of its hot loop} from the output of
-    ``cuobjdump -sass``: a loop runs from a branch's target address to the
-    branch, when the target lies before it, and the hot loop is the
-    innermost loop with the most max-family instructions."""
+def sass_inner_loops(text: str) -> dict:
+    """{function: [opcode Counter of each innermost loop]} from the output
+    of ``cuobjdump -sass``: a loop runs from a branch's target address to
+    the branch, when the target lies before it."""
     funcs = {}
     for chunk in _FUNC.split(text)[1:]:
         insns = []
@@ -351,15 +407,19 @@ def sass_loops(text: str) -> dict:
             m = _ADDR.search(args) if op == "BRA" else None
             if m and int(m.group(1), 16) < addr:
                 loops.append((int(m.group(1), 16), addr))
-        best = Counter()
-        for t, a in loops:
-            if any(t <= t2 and a2 <= a and (t2, a2) != (t, a) for t2, a2 in loops):
-                continue  # holds another loop
-            body = Counter(o for x, o, _ in insns if t <= x <= a)
-            if (_n_max(body), sum(body.values())) > (_n_max(best), sum(best.values())):
-                best = body
-        funcs[chunk.split(None, 1)[0]] = best
+        funcs[chunk.split(None, 1)[0]] = [
+            Counter(o for x, o, _ in insns if t <= x <= a) for t, a in loops
+            # skip a loop that holds another
+            if not any(t <= t2 and a2 <= a and (t2, a2) != (t, a) for t2, a2 in loops)
+        ]
     return funcs
+
+
+def sass_loops(text: str) -> dict:
+    """{function: opcode Counter of its hot loop}: the innermost loop with
+    the most max-family instructions (:func:`sass_inner_loops`)."""
+    return {fn: max(loops, key=lambda c: (_n_max(c), sum(c.values())), default=Counter())
+            for fn, loops in sass_inner_loops(text).items()}
 
 
 def sass_instructions(text: str) -> dict:
@@ -377,6 +437,21 @@ def library_sass(path=None):
         return None
     return subprocess.run([tool, "-sass", path or _build.library_path()], capture_output=True,
                           text=True, check=True).stdout
+
+
+def dp_row_probe_sass():
+    """{function: [(loop opcode Counter, instructions per cell)]} of K5's
+    instantiations, each innermost loop that runs whole step pairs (at
+    least one max-family instruction a cell, 2 x ``DP_ROW_COLS`` cells a
+    pass), fewest instructions first: the unguarded steady-state loop,
+    then the guarded first and last steps; None without ``cuobjdump``."""
+    text = library_sass()
+    if text is None:
+        return None
+    cells = 2 * DP_ROW_COLS
+    return {fn: sorted(((ops, sum(ops.values()) / cells) for ops in loops
+                        if _n_max(ops) >= cells), key=lambda x: x[1])
+            for fn, loops in sass_inner_loops(text).items() if "dp_row_probe_kernel" in fn}
 
 
 def int32_probe_sass():

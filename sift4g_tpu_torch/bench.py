@@ -21,18 +21,22 @@ Baseline: the port's native C++ DP at the same shape on the host, scalar
 
 Ceiling: ``roofline_pct`` and ``marginal_roofline_pct`` divide K1's rate
 by the card's operations bound for a Smith-Waterman cell,
-``roofline_ops_gcups``: its peak int32 rate (``roofline.int32_peak_rate``,
-2 operations per fused add-and-max x 64 instructions per clock per SM x
-SMs x the maximum SM clock; 33.454 T ops/s on an H100) over the 11 int32
-operations of a cell (``SW_OPS_PER_CELL``), so no kernel can pass 100 %.
-The JAX record divides by its row-engine probe instead, and until the
-tiled K1 the port did too; the tiled body runs past that probe, which
-measures the one-thread-per-row design K1 has left, so it bounds nothing.
-The probe K5 (``align/roofline.py``) is still re-probed after the timed
-calls and kept: ``roofline_gcups`` is K5 at B=65,536 rows, the bench
-launch's former thread count, whose 268 MB scratch lies past L2;
-``roofline_gcups_b1024`` is K5 at the JAX default of 1024 rows (4 MB of
-scratch in L2, 8 blocks on 8 of the 132 SMs).  Neither divides anything.
+``roofline_ops_gcups``: its peak rate of int32 max-family instructions
+(``roofline.int32_max_rate``, 64 a clock per SM x SMs x the maximum SM
+clock; 16.727 T/s on an H100) over the 4.5 a cell needs
+(``roofline.MAX_INSTRUCTIONS_PER_CELL``: F, G, E, H and half a
+three-input max for the best; the adds fuse into them or issue beside
+them), so no kernel can pass 100 %.
+The JAX record divides by its row-engine probe instead.  The port's
+probe K5 (``align/roofline.py``) runs K1's recurrence with its state on
+chip and none of K1's loads (no targets, no int8 profile, no scratch
+between passes): it measures the recurrence's own rate on the card, and
+K1 over K5 is what K1's loads cost.  It is re-probed after the timed
+calls: ``roofline_gcups`` is K5 at B=65,536 rows (the bench launch's
+cells a query row), ``roofline_gcups_b1024`` at the JAX default of 1024
+rows, over ``B1024_ROWS`` (the JAX rows 1,000 -> 4,000 leave under a
+millisecond between the two times there).  ``roofline_pct`` still divides
+by the operations bound: a probe's rate is a measurement, not a bound.
 
 Prints one JSON line, with the card's name and power limit, the clocks
 sampled beside each measurement, and the launches of K1 and K5.  A host
@@ -52,15 +56,20 @@ import time
 import numpy as np
 import torch
 
-# int32 adds, subtracts and maxes of one SW cell in the kernels' recurrence
-# (F 3, G 2, E 3, H 1, the zero floor and the running best)
-SW_OPS_PER_CELL = 11
+# K5's rows at B=65,536 and at B=1024 (lo, hi): on an H100 the JAX rows
+# 1,000 -> 4,000 at B=1024 leave the two times under the 1 ms timing
+# guard of roofline._differential (chip_smoke.py phase 6 prints both)
+B65536_ROWS = (120, 360)
+B1024_ROWS = (1_000, 16_000)
 
 
-def roofline_fields(gcups, marginal_gcups, int32_ops_per_s):
+def roofline_fields(gcups, marginal_gcups, max_per_s):
     """``roofline_ops_gcups`` (the operations bound of an SW cell, in
-    GCUPS) and K1's rates as percentages of it."""
-    bound = int32_ops_per_s / SW_OPS_PER_CELL / 1e9
+    GCUPS, from the card's max-family instruction rate ``max_per_s``) and
+    K1's rates as percentages of it."""
+    from .align.roofline import MAX_INSTRUCTIONS_PER_CELL
+
+    bound = max_per_s / MAX_INSTRUCTIONS_PER_CELL["SW"] / 1e9
     out = {"roofline_ops_gcups": bound, "roofline_pct": 100.0 * gcups / bound}
     if marginal_gcups:
         out["marginal_roofline_pct"] = 100.0 * marginal_gcups / bound
@@ -188,11 +197,13 @@ def main() -> int:
     clocks["after K1"] = roofline.gpu_state()
     gcups = detail.pop("gcups")
     # the ceiling, re-probed after the timed calls so it cannot perturb them
-    probe = roofline.dp_row_roofline(B=64 * 1024, N=512, lo=120, hi=360, device=device)
+    lo, hi = B65536_ROWS
+    probe = roofline.dp_row_roofline(B=64 * 1024, N=512, lo=lo, hi=hi, device=device)
     clocks["after K5 at B=65536"] = roofline.gpu_state()
-    probe_1024 = roofline.dp_row_roofline(device=device)
+    lo, hi = B1024_ROWS
+    probe_1024 = roofline.dp_row_roofline(lo=lo, hi=hi, device=device)
     clocks["after K5 at B=1024"] = roofline.gpu_state()
-    peak, peak_src = roofline.int32_peak_rate(device)
+    peak, peak_src = roofline.int32_max_rate(device)
 
     out = {
         "metric": "sw_score_gcups[cuda-grouped]",
@@ -203,13 +214,16 @@ def main() -> int:
         "cpu_simd_gcups": cpu_simd,
         **{k: v for k, v in detail.items() if v is not None},
         **roofline_fields(gcups, detail.get("marginal_gcups"), peak),
-        "roofline_ops_src": f"{peak_src}; / {SW_OPS_PER_CELL} int32 operations a SW cell",
+        "roofline_ops_src": f"{peak_src}; / {roofline.MAX_INSTRUCTIONS_PER_CELL['SW']} "
+                            "max-family instructions a SW cell",
         "roofline_gcups": probe["gcups"],
-        "roofline_src": "in-run K5, B=65536 N=512, rows 120 -> 360",
+        "roofline_src": "in-run K5 (the recurrence with its state on chip), B=65536 N=512, "
+                        "rows {} -> {}".format(*B65536_ROWS),
         "roofline_t_lo_s": probe["t_lo_s"],
         "roofline_t_hi_s": probe["t_hi_s"],
         "roofline_build_s": probe["build_s"],
         "roofline_gcups_b1024": probe_1024["gcups"],
+        "roofline_b1024_src": "in-run K5, B=1024 N=512, rows {} -> {}".format(*B1024_ROWS),
         "roofline_b1024_t_lo_s": probe_1024["t_lo_s"],
         "roofline_b1024_t_hi_s": probe_1024["t_hi_s"],
         "card": name,

@@ -13,7 +13,8 @@ printing one JSON line per measurement:
   element and round, beside the card's peak int32 rate
   (``roofline.int32_peak_rate``) and the instructions per second read
   from the loop's SASS;
-* ``dprow``: K5, the row engine's marginal cell rate at the JAX shape;
+* ``dprow``: K5, the row engine's marginal cell rate at the JAX shape,
+  over the bench's B=1024 rows (``bench.B1024_ROWS``);
 * ``native``: the port's threaded native C++ DP at the bench shape on the
   host (the CPU baseline);
 * ``g64``, ``g128``: K1 at the bench launch with 64 and 128 groups.
@@ -75,11 +76,13 @@ def run_roofline(pairs=1, B=1024, N=512, iters=6, device="cuda"):
 
 
 def run_dprow(B=1024, N=512, go=10, ge=1, iters=6, device="cuda"):
-    """K5's marginal cell rate at the JAX shape: the row engine that K1's
+    """K5's marginal cell rate at the JAX shape: the recurrence that K1's
     inner loop runs, without its matrix lookups and target loads."""
     from ..align.roofline import dp_row_roofline
+    from ..bench import B1024_ROWS
 
-    out = dp_row_roofline(B=B, N=N, go=go, ge=ge, iters=iters, device=device)
+    lo, hi = B1024_ROWS
+    out = dp_row_roofline(B=B, N=N, go=go, ge=ge, iters=iters, lo=lo, hi=hi, device=device)
     return {"metric": "dp_row_engine_gcups_marginal", **out, **_card_fields()}
 
 

@@ -57,14 +57,15 @@ def no_gpu(monkeypatch):
 
 @pytest.mark.parametrize("marginal", [None, 1500.0], ids=["no-marginal", "marginal"])
 def test_roofline_pct_divides_by_the_operations_bound(marginal):
-    """33.454 T int32 ops/s (the H100's peak at 1980 MHz) over 11
-    operations a cell bound K1 at 3041.3 GCUPS; K5's rate divides nothing."""
+    """16.727 T int32 max-family instructions/s (the H100's peak at 1980
+    MHz) over 4.5 a cell bound K1 at 3717.12 GCUPS; K5's rate divides
+    nothing."""
     from sift4g_tpu_torch import bench
 
-    peak = 2 * 64 * 132 * 1980e6
+    peak = 64 * 132 * 1980e6
     got = bench.roofline_fields(1857.0, marginal, peak)
-    bound = peak / 11 / 1e9
-    assert got["roofline_ops_gcups"] == pytest.approx(3041.28, abs=0.01)
+    bound = peak / 4.5 / 1e9
+    assert got["roofline_ops_gcups"] == pytest.approx(3717.12, abs=0.01)
     assert got["roofline_pct"] == pytest.approx(100 * 1857.0 / bound)
     assert 0 < got["roofline_pct"] <= 105
     if marginal:

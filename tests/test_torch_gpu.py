@@ -200,6 +200,48 @@ def test_dp_row_probe_matches_plain(cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 15, 16, 17, 511, 512, 513, 1100, 6144])
+def test_dp_row_probe_strip_and_wavefront_edges(cuda, N):
+    """K5 at chip_smoke.py phase 6's edges: widths around a lane's 16
+    columns and a strip's 512, rows around the wavefront's 32 lanes (and
+    the 512-row tiles past one strip), gaps with go < ge, salts at the
+    argument limit, B = 1 and 33; exact."""
+    from sift4g_tpu_torch.align import roofline
+
+    cases = [(B, M, go, ge, salt) for M in (0, 1, 2, 31, 32, 33)
+             for go, ge in ((10, 1), (11, 2), (1, 3))
+             for B, salt in ((1, 1 << 20), (33, -(1 << 20)), (33, 5))]
+    if N > 512:
+        cases += [(5, M, go, ge, 3) for M in (511, 512, 513, 1025) for go, ge in ((10, 1), (1, 3))]
+    for B, M, go, ge, salt in cases:
+        got = roofline.dp_row_probe(M, salt, B=B, N=N, go=go, ge=ge, device=cuda)
+        ref = roofline.dp_row_probe_plain(M, salt, B=B, N=N, go=go, ge=ge, device=cuda)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and got.shape == (B,)
+        assert torch.equal(got, ref), (B, N, M, go, ge, salt)
+
+
+@pytest.mark.gpu
+def test_dp_row_probe_entry_refuses_a_strip_count_off_its_width(cuda):
+    """The C entry takes the strips of roofline.dp_row_geometry and refuses
+    a count whose strips do not just cover N (cudaErrorInvalidValue)."""
+    from sift4g_tpu_torch.align import _build, roofline
+
+    lib = _build.load()
+    B, N = 4, 1100
+    T, _, block, strips = roofline.dp_row_geometry(B, N, 132)
+    assert strips == 3
+    scratch = torch.empty(lib.sift4g_dp_row_scratch_bytes(B, 4), dtype=torch.uint8, device=cuda)
+    out = torch.empty(B, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for bad in (0, 2, 4):
+        assert lib.sift4g_dp_row_probe(B, N, 8, 3, 10, 1, T, bad, block, scratch.data_ptr(),
+                                       out.data_ptr(), stream) == 1
+    assert lib.sift4g_dp_row_scratch_bytes(B, 1) == 0
+    assert lib.sift4g_dp_row_scratch_bytes(B, strips) == B * strips * 16 * 32 * 8
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("pairs", [1, 2, 4])
 def test_int32_probe_matches_plain(cuda, pairs):
     from sift4g_tpu_torch.align import roofline

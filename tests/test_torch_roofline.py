@@ -6,8 +6,10 @@ arguments each of them hands ``pallas_call`` are captured (a stand-in
 ``[M, salt]``.  K5: ``sift4g_tpu/align/roofline.py:dp_row_roofline``;
 K6: ``tools/bench_ab.py`` ``run_roofline`` and ``run_roofline_ilp``,
 loaded from their file without running the script.  A serial Gotoh
-reference in numpy pins the equivalence K5's CUDA design relies on.
-Tolerance: exact int32 equality (every value is an integer)."""
+reference in numpy pins the equivalence K5's CUDA design relies on, and
+a transcription of the kernel's schedule (lanes, shuffles, strips, row
+tiles and padding columns, at small lane, column and tile counts) is held
+to it.  Tolerance: exact int32 equality (every value is an integer)."""
 
 import importlib.util
 import os
@@ -83,8 +85,74 @@ def gotoh_row_numpy(M, salt, N, go, ge):
     return best
 
 
+def wavefront_numpy(M, salt, N, go, ge, T, C, R):
+    """One row of K5 as csrc/dp_row_roofline.cu schedules it: T lanes of
+    C columns a strip, lane t on query row s - t at step s, the E and
+    last-column H passed one lane right after each step, columns past N
+    scoring 0 and entering ``best`` unmasked; a row wider than T x C runs
+    its strips in turn over tiles of R rows, the right edge handed on in
+    two alternating buffers and each strip's bottom row kept between
+    tiles."""
+    W = T * C
+    strips = -(-N // W)
+    wide = strips > 1
+    lanes = np.arange(T)
+    bottom = [(np.zeros((T, C), np.int64), np.full((T, C), roofline.NEGL, np.int64))] * strips
+    best = np.zeros(T, np.int64)
+    edge = [[(0, 0)] * R, [(0, 0)] * R]
+    for r0 in range(0, M, R) if wide else [0]:
+        rows = min(R, M - r0) if wide else M
+        corner = 0
+        for strip in range(strips):
+            cols = strip * W + lanes[:, None] * C + np.arange(C)
+            s0 = np.where(cols < N, cols % 11 - 4 + salt, 0)
+            s1 = np.where(cols < N, (cols + 5) % 13 - 6 - salt, 0)
+            even = (r0 - lanes[:, None] + cols) % 2 == 0
+            sa, sb = np.where(even, s0, s1), np.where(even, s1, s0)
+            h, f = (x.copy() for x in bottom[strip])
+            corner_next = h[T - 1, C - 1]
+            ein, eout = edge[(strip + 1) % 2], edge[strip % 2]
+
+            def left(i):
+                return ein[min(i, R - 1)] if strip > 0 else (-go, 0)
+
+            diag = np.zeros(T, np.int64)
+            diag[0] = corner
+            e = np.zeros(T, np.int64)
+            hl = np.concatenate([[0], h[:-1, C - 1]])
+            e[0], hl[0] = left(0)
+            eo = np.zeros(T, np.int64)
+            # whole pairs, at least T & ~1 steps, as the kernel's loops run
+            for s in range(max(rows + T - 1 + (rows + T - 1) % 2, T & ~1)):
+                sc = sa if s % 2 == 0 else sb
+                for t in range(T):
+                    if not 0 <= s - t < rows:
+                        continue
+                    d, ee, gl, hp = diag[t], e[t], 0, 0
+                    for k in range(C):
+                        if k > 0:
+                            ee = max(ee - ge, gl - go)
+                        fk = max(h[t, k] - go, f[t, k] - ge)
+                        g = max(d + sc[t, k], fk, 0)
+                        hk = max(g, ee)
+                        d, h[t, k], f[t, k], gl = h[t, k], hk, fk, g
+                        if k % 2:
+                            best[t] = max(best[t], hp, hk)
+                        hp = hk
+                    eo[t] = max(ee - ge, gl - go)
+                    if wide and t == T - 1 and strip + 1 < strips:
+                        eout[s - t] = (eo[t], h[t, C - 1])
+                diag = hl.copy()
+                e = np.concatenate([[0], eo[:-1]])
+                hl = np.concatenate([[0], h[:-1, C - 1]])
+                e[0], hl[0] = left(s + 1)
+            bottom[strip] = (h, f)
+            corner = corner_next
+    return int(best.max())
+
+
 # (B, N, go, ge, M, salt); the first three rows are the documented cases
-# (expected 35, 340, 47)
+# (expected 35, 340, 47); then go < ge, and a row one column past a strip
 K5_CASES = [
     (8, 16, 10, 1, 5, 3),
     (4, 128, 10, 1, 40, 7),
@@ -92,6 +160,8 @@ K5_CASES = [
     (4, 64, 5, 2, 20, 101),
     (4, 128, 5, 2, 30, -20),
     (16, 48, 11, 2, 0, 9),
+    (4, 48, 1, 3, 20, 2),
+    (2, 513, 10, 1, 9, 4),
 ]
 
 
@@ -116,6 +186,47 @@ def test_dp_row_plain_matches_serial_gotoh(case):
     B, N, go, ge, M, salt = case
     got = roofline.dp_row_probe_plain(M, salt, B=B, N=N, go=go, ge=ge)
     assert (got == gotoh_row_numpy(M, salt, N, go, ge)).all()
+
+
+# (T, C, R): lanes, columns a lane and rows a tile of the kernel's schedule,
+# small so that strips, tiles, padding and the wavefront's ramps all show
+WAVEFRONT_SHAPES = [(4, 4, 8), (2, 4, 5), (1, 4, 6), (8, 2, 7)]
+
+
+@pytest.mark.parametrize("shape", WAVEFRONT_SHAPES, ids=lambda c: "T{}-C{}-R{}".format(*c))
+def test_wavefront_schedule_matches_serial_gotoh(shape):
+    T, C, R = shape
+    rng = np.random.default_rng(T * 100 + C * 10 + R)
+    W = T * C
+    for N in sorted({1, 3, W - 1, W, W + 1, 3 * W + 2}):
+        for M in sorted({0, 1, 2, T - 1, T, T + 1, R - 1, R, R + 1, 2 * R + 3}):
+            for go, ge in [(10, 1), (11, 2), (1, 3), (0, 0)]:
+                salt = int(rng.integers(-30, 30))
+                got = wavefront_numpy(M, salt, N, go, ge, T, C, R)
+                assert got == gotoh_row_numpy(M, salt, N, go, ge), (N, M, go, ge, salt)
+
+
+@pytest.mark.parametrize("case", [
+    ((65536, 512, 132), (32, 16, 128, 1)),   # the bench's shape
+    ((1024, 512, 132), (32, 16, 128, 1)),    # the JAX default
+    ((1024, 1, 132), (1, 16, 32, 1)),
+    ((1024, 17, 132), (2, 16, 32, 1)),
+    ((1, 200, 132), (16, 16, 32, 1)),
+    ((1024, 513, 132), (32, 16, 128, 2)),
+    ((1024, 6144, 132), (32, 16, 128, 12)),
+], ids=["bench", "B1024", "N1", "N17", "B1-N200", "N513", "N6144"])
+def test_dp_row_geometry(case):
+    args, want = case
+    assert roofline.dp_row_geometry(*args) == want
+    T, C, block, strips = want
+    assert T * C * strips >= args[1] and (strips == 1 or T == 32)
+
+
+def test_dp_row_geometry_refuses_wide_rows():
+    with pytest.raises(ValueError, match="exceeds"):
+        roofline.dp_row_geometry(1024, roofline.MAX_DP_ROW_N + 1, 132)
+    with pytest.raises(ValueError, match="positive"):
+        roofline.dp_row_geometry(0, 512, 132)
 
 
 # (B, N, M, salt): B > N + 2 salt makes b - salt beat n + salt, so rows differ
@@ -222,6 +333,35 @@ _SASS = """
 		Function : _ZN6sift4g12_GLOBAL__N_119dp_row_probe_kernelEiiiiiiP4int2Pi
         /*0000*/                   EXIT ;                                   /* 0x000000000000794d */
 """
+
+
+def _k5_sass(loops):
+    """cuobjdump-like text of one K5 instantiation with a loop for each
+    (max-family instructions, other instructions) in ``loops``."""
+    lines, addr = ["\t\tFunction : _ZN6sift4g12_GLOBAL__N_119dp_row_probe_kernelILb0EEEviii"], 0
+    for n_max, n_other in loops:
+        top = addr
+        for k in range(n_max + n_other):
+            op = "VIADDMNMX R4, R2, 0x1, R3, !PT" if k < n_max else "SHFL.UP PT, R5, R6, 0x1, RZ"
+            lines.append(f"        /*{addr:04x}*/                   {op} ;")
+            addr += 16
+        lines.append(f"        /*{addr:04x}*/               @P1 BRA 0x{top:x} ;")
+        addr += 16
+    lines.append(f"        /*{addr:04x}*/                   EXIT ;")
+    return "\n".join(lines) + "\n"
+
+
+def test_dp_row_probe_sass_orders_the_step_loops(monkeypatch):
+    # a guarded loop (more instructions), the steady-state loop, and a
+    # short loop that runs no whole step pair
+    monkeypatch.setattr(roofline, "library_sass", lambda path=None: _k5_sass(
+        [(32, 16), (32, 7), (4, 2)]))
+    (fn, loops), = roofline.dp_row_probe_sass().items()
+    assert "dp_row_probe_kernel" in fn
+    assert [per for _, per in loops] == [40 / 32, 49 / 32]
+    assert loops[0][0] == {"VIADDMNMX": 32, "SHFL": 7, "BRA": 1}
+    monkeypatch.setattr(roofline, "library_sass", lambda path=None: None)
+    assert roofline.dp_row_probe_sass() is None
 
 
 def test_sass_loop_parser():
