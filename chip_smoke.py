@@ -9,8 +9,8 @@ name of its own, builds DIR's kernels through DIR's own wrappers and
 times its K1, K3, K4 and K5 beside this checkout's, in turns (parent,
 this, this, parent) on the same inputs, in phases 3, 3b, 5, 5b, 6 and 9b
 (and prints, in phase 1, which scorer kernels' and K6's SASS is the
-parent's): K1, K3 and K4 must stay within 3 % of the parent's in phases
-3, 5, 5b and 9b, and K5 must be faster than the parent's in 6.
+parent's): K1, K3, K4 and K5 must stay within 3 % of the parent's in
+phases 3, 5, 5b, 6 and 9b.
 
 Phases, in order; the first failure ends the run with a non-zero exit:
 
@@ -81,10 +81,13 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    over ``bench.B1024_ROWS``, B=65,536 over ``bench.B65536_ROWS``) with
    the card's clocks and power;
 7. K6, the int32 probes, against their plain version for 1, 2 and 4
-   pairs, exact; then ``bench_ab roofline``,
-   ``roofline2`` and ``roofline4`` (counted: these are K6's path), each
-   rate beside the card's peak int32 rate as a check of it, and the
-   opcodes of each variant's loop from ``cuobjdump -sass``.  The
+   pairs, exact, and its int16 form (two elements a register, the packed
+   DPX forms of K1's int16 accumulator) the same way and where its values
+   wrap; then ``bench_ab roofline``,
+   ``roofline2``, ``roofline4`` and ``roofline16`` (counted: these are
+   K6's path), each rate beside the card's peak int32 rate as a check of
+   it (the int16 form's: whether the packed forms issue at the int32
+   rate), and the opcodes of each variant's loop from ``cuobjdump -sass``.  The
    operations bound of every kernel divides the max-family instructions
    its work needs (``roofline.MAX_INSTRUCTIONS_PER_CELL`` a DP cell: 4.5
    in SW, 4 in the other modes; 2 per element and round of K6) by the
@@ -162,6 +165,21 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    ``auto`` takes it; each host's launches are printed) and ``--mh-shard
    queries``; both byte-identical to phase 4's ``--backend native``; host
    0's phase seconds are printed.
+13. (run after phase 3) K1's int16 and float32 accumulators (``acc="i16"``,
+   the pair kernel of ``csrc/sw_pair16.cuh``; ``acc="f32"``): each exact
+   against its plain version and K1 ``acc="int"`` in all four modes at
+   every T, on odd batches (a pair with no partner), pairs of unequal
+   lengths (0 and N among them), int8 garbage past every length, queries
+   of several passes, the pass boundaries of every T with gaps 10/1 and
+   11/2, and the largest admissible bound (623 x 12 + 10 + 513 = 7999);
+   an inadmissible or unknown request refused before any launch; int
+   against i16 in turns at the bench launch and at a main-like launch
+   (G=36 B=4096 N=384, lengths 193-384), int against f32 at the bench
+   launch; the packed instructions a cell pair of the int16 SW loop's
+   SASS against those it needs; ``bench_ab ab`` (the int16 path, its
+   launches counted) and ``make_grouped_sharded`` with ``acc="f32"``
+   (the float32 path, counted) and ``"i16"`` on the device list.  The
+   CLI's main path (phase 4) must launch neither form.
 
 ``python3 chip_smoke.py --counted ARGS`` runs the port's CLI on ARGS in
 its process (what ``python -m sift4g_tpu_torch ARGS`` runs), with every
@@ -224,6 +242,18 @@ K6 = {
     "route": "cuda",
     "source": "sift4g_tpu_torch/csrc/int32_roofline.cu",
     "replaces": "tools/bench_ab.py:95",
+}
+K1_I16 = {
+    "name": "sw_grouped_i16",
+    "route": "cuda",
+    "source": "sift4g_tpu_torch/csrc/sw_pair16.cuh",
+    "replaces": "sift4g_tpu/align/pallas_sw.py:200",
+}
+K1_F32 = {
+    "name": "sw_grouped_f32",
+    "route": "cuda",
+    "source": "sift4g_tpu_torch/csrc/sw_tiled.cuh",
+    "replaces": "sift4g_tpu/align/pallas_sw.py:200",
 }
 # H100 SXM device memory bandwidth from NVIDIA's datasheet
 HBM_BYTES_PER_S = 3.35e12
@@ -748,6 +778,8 @@ def _counts():
     from sift4g_tpu_torch.align import sw_grouped
 
     return {"kernel_launches": sw_grouped.kernel_launches,
+            "i16_launches": sw_grouped.i16_launches,
+            "f32_launches": sw_grouped.f32_launches,
             "resident_launches": sw_grouped.resident_launches,
             "twin_calls_on_cuda": sw_grouped.twin_calls_on_cuda}
 
@@ -817,6 +849,8 @@ def phase_main_path(tmp):
     launches = counts["kernel_launches"]
     check(launches > 0, "the main path launched K1 no time")
     check(counts["resident_launches"] == 0, "phase 4 left the slab path")
+    check(counts["i16_launches"] == 0 and counts["f32_launches"] == 0,
+          "the main path left K1's int32 accumulator")
     check(counts["twin_calls_on_cuda"] == 0,
           f"the main path called the twin on CUDA {counts['twin_calls_on_cuda']} times")
     n_pred = _same_tree(outs["cuda"], outs["native"], "subst mode")
@@ -1005,8 +1039,11 @@ def phase_main_launches(recorded, card, kind, tag):
     if PARENT["k"]:
         par = PARENT["k"].k1 if kind == "slab" else PARENT["k"].k3
         what = f"{'K1' if kind == 'slab' else 'K3'}'s largest main-path launch G={G} B={B} N={N}"
+        # the main path's int32 accumulator: the parent's K1 takes no acc
+        check(kw.get("acc", "int") == "int", f"{what}: the main path ran acc={kw.get('acc')!r}")
+        par_kw = {k: v for k, v in kw.items() if k not in ("max_qlen", "max_sub", "acc")}
         check_unmoved(what, *parent_turns(tag, what, lambda: kernel(*args, **kw),
-                                          lambda: par(*args, **kw), 3, card, true))
+                                          lambda: par(*args, **par_kw), 3, card, true))
     if kind == "resident":
         # K1 on the same windows as a slab, timed between K3's turns
         q, o, ql, db, st, tl = args[:6]
@@ -1105,10 +1142,9 @@ def phase_dp_row(dev, card, k1_gcups):
     say(f"[6] K1 at the bench launch (phase 3) over K5 at its shape: {k1_gcups:.2f} / "
         f"{gcups:.2f} GCUPS = {k1_gcups / gcups:.3f}")
     if PARENT["k"]:
-        par, this = parent_turns("6", f"K5 at B={B} N={N} M={M}", kernel,
-                                 lambda: PARENT["k"].k5(M, 11, B=B, N=N, device=dev), 3, card,
-                                 cells)
-        check(this < par, f"K5 ({this:.3f} ms) is not faster than the parent's ({par:.3f} ms)")
+        check_unmoved(f"K5 at B={B} N={N} M={M}", *parent_turns(
+            "6", f"K5 at B={B} N={N} M={M}", kernel,
+            lambda: PARENT["k"].k5(M, 11, B=B, N=N, device=dev), 3, card, cells))
     for rows in (1000, 4000, bench.B1024_ROWS[1]):
         t = _time_ms(lambda: roofline.dp_row_probe(rows, 11, B=1024, N=N, device=dev), iters=5,
                      warmup=1)
@@ -1139,15 +1175,20 @@ def phase_int32(dev, card):
 
     B, N, M = 1024, 512, 1000
     max_err = 0
-    for pairs in roofline.INT32_PAIRS:
-        ref = roofline.int32_probe_plain(M, 3, B=B, N=N, pairs=pairs, device=dev)
-        check(int(ref.unique().numel()) > 1, "K6 parity case: every row equal")
-        got = roofline.int32_probe(M, 3, B=B, N=N, pairs=pairs, device=dev)
-        torch.cuda.synchronize()
-        err = int((got.long() - ref.long()).abs().max())
-        max_err = max(max_err, err)
-        check(err == 0, f"K6 pairs={pairs}: differs from plain by {err}")
-        say(f"[7] K6 B={B} N={N} M={M} pairs={pairs}: kernel == plain (max |diff| 0)")
+    # the int32 form, then the int16 one, also past 32,767 where it wraps
+    cases = [(False, B, N, M), (True, B, N, M), (True, 6, 70, 32_760)]
+    for packed, b, n, m in cases:
+        for pairs in roofline.INT32_PAIRS:
+            what = f"K6{' int16' if packed else ''} B={b} N={n} M={m} pairs={pairs}"
+            ref = roofline.int32_probe_plain(m, 3, B=b, N=n, pairs=pairs, packed=packed,
+                                             device=dev)
+            check(m > M or int(ref.unique().numel()) > 1, f"{what}: every row equal")
+            got = roofline.int32_probe(m, 3, B=b, N=n, pairs=pairs, packed=packed, device=dev)
+            torch.cuda.synchronize()
+            err = int((got.long() - ref.long()).abs().max())
+            max_err = max(max_err, err)
+            check(err == 0, f"{what}: differs from plain by {err}")
+            say(f"[7] {what}: kernel == plain (max |diff| 0)")
     M = 25_000
     ms = _time_ms(lambda: roofline.int32_probe(M, 5, B=B, N=N, device=dev), iters=3, warmup=1)
     plain_ms = _time_ms(lambda: roofline.int32_probe_plain(M, 5, B=B, N=N, device=dev),
@@ -1157,6 +1198,7 @@ def phase_int32(dev, card):
 
     roofline.reset_counters()
     records = [bench_ab.run_roofline(pairs=pairs, device=dev) for pairs in roofline.INT32_PAIRS]
+    packed = bench_ab.COMMANDS["roofline16"]()
     launches = roofline.int32_launches
     check(launches > 0, "bench_ab roofline launched K6 no time")
     # K6's loop is all fused VIADDMNMX: 2 operations a max-family instruction
@@ -1176,6 +1218,18 @@ def phase_int32(dev, card):
         check(ops.get("VIADDMNMX", 0) > 0, f"K6 pairs={pairs}: the loop has no fused VIADDMNMX")
         say(f"[7] SASS loop of K6 pairs={pairs}: {dict(ops)}; {rounds:g} rounds per pass, "
             f"{per:.4f} instructions per element and round")
+    # the int16 form: two elements an instruction, 4 operations each
+    ips = packed["tops"] * 1e12 / (2 * roofline.OPS_PER_FUSED_INSTRUCTION)
+    say(f"[7] bench_ab {packed['metric']} (roofline16): {packed['tops']:.3f} T int16 ops/s, "
+        f"{ips / 1e12:.3f} T VIADDMNMX.S16x2/s = {100 * ips / INT32['per_s']:.1f} % of the "
+        f"int32 max-family rate {INT32['per_s'] / 1e12:.3f} T/s; t_lo {packed['t_lo_s']:.6f} "
+        f"s, t_hi {packed['t_hi_s']:.6f} s; {packed['card']}, {packed['power_limit']}; clocks "
+        f"{packed['clocks']}")
+    check(packed["t_hi_s"] - packed["t_lo_s"] > 1e-3, "roofline16: t_hi - t_lo under 1 ms")
+    for pairs, (ops, rounds, per) in sorted((roofline.int32_probe_sass(packed=True)
+                                             or {}).items()):
+        say(f"[7] SASS loop of K6's int16 form pairs={pairs}: {dict(ops)}; {rounds:g} rounds "
+            f"per pass, {per:.4f} instructions per element and round")
     best = max(records, key=lambda r: r["tops"])
     say(f"[7] check of the peak: K6's best, {best['metric']}, {best['tops']:.3f} T ops/s, is "
         f"{100 * best['tops'] * 1e12 / peak:.1f} % of the peak {peak / 1e12:.3f} T ops/s")
@@ -1187,6 +1241,230 @@ def phase_int32(dev, card):
         f"{INT32['src']}")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, work=(4 * B, 2 * B * N * M),
                 launches=launches)
+
+
+def _acc_cases(dev):
+    """The cases of phase 13: (name, inputs, matrix32, gaps, max_qlen).
+    Every batch is odd (its last pair has no partner); pairs of unequal
+    lengths, 0 and N among them; int8 garbage past every length."""
+    import torch
+    from sift4g_tpu_torch.align import scan
+    from sift4g_tpu_torch.align.sw_grouped import GROUP_THREADS, TILE_ROWS
+
+    rng = np.random.default_rng(13)
+    N = 512
+    cases = []
+    # ragged, with queries of several passes at every T (600 > 32 x 16)
+    m32 = scan.matrix32_from_scorer(SimpleNamespace(matrix=random_matrix(rng)), dev)
+    args = grouped_inputs(rng, 6, 301, N, (600, 0, 17, 128, 513, 1), dev)
+    args[4][1:, -1] = N                  # an unpaired last target, N long
+    args[4][2, :8] = torch.tensor((0, N, N, 0, 1, N, 17, 16))
+    cases.append(("ragged", args, m32, (10, 1), 600))
+    # the pass boundaries of every T, and target lengths 0, 1, 15, 16, 17, N
+    qlens = sorted({0, 1} | {T * TILE_ROWS + d for T in GROUP_THREADS for d in (-1, 0, 1)})
+    for gaps in ((10, 1), (11, 2)):
+        m32 = scan.matrix32_from_scorer(SimpleNamespace(matrix=random_matrix(rng)), dev)
+        args = grouped_inputs(rng, len(qlens), 33, N, qlens, dev)
+        args[4][:, :8] = torch.tensor((0, N, 1, 17, 15, 16, N, 0))
+        cases.append((f"pass boundaries {gaps[0]}/{gaps[1]}", args, m32, gaps, max(qlens)))
+    # the largest admissible bound: 623 x 12 + 10 + 513 x 1 = 7999 < 8000,
+    # with targets cut from the queries so that the best cells near 6,144
+    m = random_matrix(rng)
+    np.fill_diagonal(m, 12)
+    m32 = scan.matrix32_from_scorer(SimpleNamespace(matrix=m), dev)
+    args = grouped_inputs(rng, 4, 33, N, (623, 622, 600, 1), dev)
+    q_all, offs, ql, targets, lens = args
+    for g in range(3):
+        for b in range(0, 33, 3):
+            n = int(lens[g, b])
+            k = int(rng.integers(0, int(ql[g]) - n + 1)) if n <= int(ql[g]) else 0
+            n = min(n, int(ql[g]))
+            lens[g, b] = n
+            targets[g, b, :n] = q_all[int(offs[g]) + k:int(offs[g]) + k + n].to(torch.int8)
+    cases.append(("largest bound", args, m32, (10, 1), 623))
+    return cases
+
+
+def _acc_timing(dev, card, tag, G, B, N, m, lens_range, acc, seed):
+    """K1 int and K1 ``acc`` on one launch, equal, then timed in turns
+    (int, acc, acc, int) with CUDA events; the plain version of ``acc``
+    timed once.  Returns (int ms, acc ms, plain ms, work, cells)."""
+    import torch
+    from sift4g_tpu_torch.align import scan, sw_grouped
+
+    rng = np.random.default_rng(seed)
+    m32 = scan.matrix32_from_scorer(SimpleNamespace(matrix=random_matrix(rng)), dev)
+    args = grouped_inputs(rng, G, B, N, (m,) * G, dev, zero_len=False)
+    if lens_range:
+        args[4].copy_(torch.from_numpy(rng.integers(*lens_range, (G, B)).astype(np.int32)))
+    kw = dict(max_qlen=-(-m // 64) * 64, max_sub=int(m32.max()), acc=acc)
+
+    def k_int():
+        return sw_grouped.sw_scores_grouped(*args, m32)
+
+    def k_acc():
+        return sw_grouped.sw_scores_grouped(*args, m32, **kw)
+
+    check(torch.equal(k_int(), k_acc()), f"{tag}: K1 {acc} differs from K1 int")
+    t = {"int": [], acc: []}
+    for name, fn in (("int", k_int), (acc, k_acc), (acc, k_acc), ("int", k_int)):
+        t[name].append(_time_ms(fn, iters=10, warmup=1))
+    ref = []
+    plain_ms = _time_ms(lambda: ref.append(scan.align_scores_grouped(*args, m32, **kw)),
+                        iters=1, warmup=0)
+    check(torch.equal(ref[0], k_acc()), f"{tag}: K1 {acc} differs from its plain version")
+    del ref
+    nbytes, _, true = _work("slab", args, {"mode": "SW"})
+    cells = G * B * N * m
+    ti, ta = min(t["int"]), min(t[acc])
+    say(f"[13] {tag} G={G} B={B} N={N} m={m}, {card}, in turns: int {t['int'][0]:.3f} then "
+        f"{t['int'][1]:.3f} ms ({cells / ti / 1e6:.2f} GCUPS padded, {true / ti / 1e6:.2f} "
+        f"true); {acc} {t[acc][0]:.3f} then {t[acc][1]:.3f} ms ({cells / ta / 1e6:.2f} padded, "
+        f"{true / ta / 1e6:.2f} true); {acc} over int {ti / ta:.3f}x; plain {acc} "
+        f"{plain_ms:.3f} ms; geometry int {sw_grouped.launch_geometry(G, B, N, dev)}, "
+        f"{acc} {sw_grouped.launch_geometry(G, (B + 1) // 2 if acc == 'i16' else B, N, dev)}")
+    torch.cuda.empty_cache()
+    return ti, ta, plain_ms, (nbytes, true), cells
+
+
+# packed instructions a cell pair of the int16 SW loop: F, G and E one
+# VIADDMNMX.S16x2 each (G's .RELU), H one VIMNMX.S16x2, the best one
+# VIMNMX3.S16x2 every second row, two VIADD.16x2 (H - go, G - go) and one
+# PRMT (the score pair)
+I16_LOOP_EXPECTED = {"VIADDMNMX.S16x2": 2, "VIADDMNMX.S16x2.RELU": 1, "VIMNMX.S16x2": 1,
+                     "VIMNMX3.S16x2": 0.5, "VIADD.16x2": 2, "PRMT": 1}
+
+
+def phase_acc(dev, card):
+    """K1's int16 and float32 accumulators: exact against their plain
+    versions and K1 int, refused where the JAX wrapper refuses, timed in
+    turns against K1 int, their SASS loops, and their paths (``bench_ab
+    ab`` for int16, ``make_grouped_sharded(acc="f32")`` for float32) with
+    the launches counted."""
+    import io
+    import torch
+    from sift4g_tpu_torch.align import roofline, scan, sw_grouped
+    from sift4g_tpu_torch.parallel import sharded
+    from sift4g_tpu_torch.tools import bench_ab
+
+    max_err, n = {"i16": 0, "f32": 0}, 0
+    for name, args, m32, (go, ge), max_qlen in _acc_cases(dev):
+        t0 = time.perf_counter()
+        N = args[3].shape[2]
+        bounds = dict(max_qlen=max_qlen, max_sub=int(m32.max()))
+        check(scan.i16_admissible(max_qlen, bounds["max_sub"], go, ge, N), f"{name}: refused")
+        best = 0
+        for mode in MODES:
+            kw = dict(mode=mode, gap_open=go, gap_extend=ge)
+            ref = sw_grouped.sw_scores_grouped(*args, m32, **kw)
+            best = max(best, int(ref.max()))
+            for acc in ("i16", "f32"):
+                plain = scan.align_scores_grouped(*args, m32, acc=acc, **bounds, **kw)
+                check(torch.equal(plain, ref), f"{name} {mode}: plain {acc} differs from K1 int")
+                for T in all_T():
+                    got = sw_grouped.sw_scores_grouped(*args, m32, acc=acc, threads_per_target=T,
+                                                       **bounds, **kw)
+                    torch.cuda.synchronize()
+                    err = int((got.long() - plain.long()).abs().max())
+                    max_err[acc] = max(max_err[acc], err)
+                    check(err == 0, f"{name} {mode} T={T}: K1 {acc} differs from its plain "
+                                    f"version by up to {err}")
+                    n += 1
+        G, B, _ = args[3].shape
+        say(f"[13] {name:22s} G={G} B={B} N={N} qlens<={max_qlen} gaps {go}/{ge} (bound "
+            f"{max_qlen * bounds['max_sub'] + go + (N + 1) * ge} < 8000; best SW cell {best}): "
+            f"K1 i16 == plain i16 == K1 f32 == plain f32 == K1 int in all four modes at every "
+            f"T ({time.perf_counter() - t0:.2f} s)")
+    say(f"[13] K1 i16 and f32 exact on {n} launches")
+
+    # refusals: before any launch
+    q, o, ql, tg, tl = grouped_inputs(np.random.default_rng(5), 2, 9, 512, (100, 7), dev)
+    m32 = scan.matrix32_from_scorer(SimpleNamespace(matrix=random_matrix(
+        np.random.default_rng(5))), dev)
+    before = _counts()
+    for bad in (dict(max_qlen=624, max_sub=12, acc="i16"), dict(acc="i16"), dict(acc="i8")):
+        try:
+            sw_grouped.sw_scores_grouped(q, o, ql, tg, tl, m32, **bad)
+        except ValueError as exc:
+            say(f"[13] refused {bad}: {exc}")
+        else:
+            check(False, f"K1 accepted {bad}")
+    check(_counts() == before, "a refused request launched a kernel")
+
+    # timing in turns
+    ti, ta, plain_i16, work_i16, cells = _acc_timing(dev, card, "bench launch i16", 64, 1024, 512,
+                                                     360, None, "i16", 42)
+    bound_ms, bound_by = _bound(work_i16[0], work_i16[1] * roofline.MAX_INSTRUCTIONS_PER_CELL_I16)
+    say(f"[13] i16 at the bench launch, {card}: {ta:.3f} ms, {cells / ta / 1e6:.2f} GCUPS; its "
+        f"bound {bound_ms:.3f} ms ({bound_by}: {roofline.MAX_INSTRUCTIONS_PER_CELL_I16} "
+        f"max-family instructions a SW cell at {INT32['per_s'] / 1e12:.3f} T/s; "
+        f"{100 * bound_ms / ta:.1f} % of it); K1 int {ti:.3f} ms")
+    i16 = dict(ms=ta, plain_ms=plain_i16, work=(work_i16[0],
+                                               work_i16[1] * roofline.MAX_INSTRUCTIONS_PER_CELL_I16))
+    _acc_timing(dev, card, "main-like i16", 36, 4096, 384, 360, (193, 385), "i16", 7)
+    ti, tf, plain_f32, work_f32, _ = _acc_timing(dev, card, "bench launch f32", 64, 1024, 512,
+                                                 360, None, "f32", 42)
+    f32 = dict(ms=tf, plain_ms=plain_f32, work=(work_f32[0], work_f32[1]
+                                                * roofline.MAX_INSTRUCTIONS_PER_CELL["SW"]))
+
+    # the SASS of K1's three SW loops
+    sass = roofline.k1_sw_loop_sass()
+    if sass is None:
+        say("[13] SASS: cuobjdump not found; loop opcodes not read")
+    for name, (ops, cells, per) in sorted((sass or {}).items()):
+        unit = "cell pair" if name == "sw_pair16_kernel" else "cell"
+        check(per is not None, f"{name}: no column loop found in the SASS")
+        say(f"[13] SASS column loop of {name} (SW, slabs): {cells} {unit}s of code, {per:.3f} "
+            f"instructions a {unit}, {dict(ops.most_common())}")
+    if sass and "sw_pair16_kernel" in sass:
+        ops, cells, per = sass["sw_pair16_kernel"]
+        got = {op: ops.get(op, 0) / cells for op in I16_LOOP_EXPECTED}
+        forms = sorted(op for op in ops if ".S16x2" in op or ".16x2" in op)
+        emulated = [op for op, want in I16_LOOP_EXPECTED.items() if got[op] < want]
+        say(f"[13] int16 loop, packed forms present: {forms}; a cell pair: "
+            + ", ".join(f"{op} {got[op]:g} (needed {want:g})"
+                        for op, want in I16_LOOP_EXPECTED.items())
+            + f"; {per:.3f} instructions a cell pair ({per / 2:.3f} a cell); "
+            + (f"fewer than needed, so emulated or merged: {emulated}" if emulated
+               else "no packed add or max emulated"))
+        check(got["VIADDMNMX.S16x2.RELU"] > 0 and got["VIMNMX3.S16x2"] > 0,
+              "the int16 SW loop has no fused packed add-max")
+
+    # the int16 path: bench_ab ab, counted
+    sw_grouped.reset_counters()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_ab.main(["ab"])
+    i16["launches"] = sw_grouped.i16_launches
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        say(f"[13] bench_ab ab: {line}")
+    check(rc == 0 and json.loads(lines[-1]).get("parity") == "ok", "bench_ab ab: no parity line")
+    check(i16["launches"] > 0, "bench_ab ab launched the int16 kernel no time")
+    say(f"[13] bench_ab ab: {i16['launches']} int16 launches, {sw_grouped.kernel_launches} int32")
+
+    # the float32 path: make_grouped_sharded(acc="f32") on the device list, counted
+    name, args, m32, (go, ge), max_qlen = _acc_cases(dev)[0]
+    mesh = shard_devices()
+    G = args[3].shape[0]
+    want = sw_grouped.sw_scores_grouped(*args, m32, mode="OV", gap_open=go, gap_extend=ge)
+    for acc in ("f32", "i16"):
+        fn = sharded.make_grouped_sharded(mesh, mode="OV", gap_open=go, gap_extend=ge,
+                                          max_qlen=max_qlen, max_sub=int(m32.max()), acc=acc)
+        sw_grouped.reset_counters()
+        got = fn(*args, m32)
+        _sync_all()
+        counts = _counts()
+        check(torch.equal(torch.cat([x.to(dev) for x in got]), want),
+              f"make_grouped_sharded acc={acc} differs from K1 int")
+        check(counts[f"{acc}_launches"] == len(mesh) and counts["twin_calls_on_cuda"] == 0,
+              f"make_grouped_sharded acc={acc}: {counts}")
+        if acc == "f32":
+            f32["launches"] = counts["f32_launches"]
+        say(f"[13] make_grouped_sharded(acc={acc!r}) on {len(mesh)} shards, G={G}: == K1 int; "
+            f"{counts}")
+    i16["max_abs_err"], f32["max_abs_err"] = max_err["i16"], max_err["f32"]
+    return i16, f32
 
 
 _BENCH_RUN = """
@@ -2002,6 +2280,7 @@ def main(argv=None) -> int:
     err_k3 = run_phase("2b", phase_resident_parity, dev)
     err_t, k1_gcups = run_phase("3", phase_timing, dev, card)
     err_k1 = max(err_k1, err_t)
+    k1_i16, k1_f32 = run_phase("13", phase_acc, dev, card)
     long_rungs = run_phase("3b", phase_long_rungs, dev, card)
     tmp = tempfile.mkdtemp(prefix="sift4g-smoke-")
     try:
@@ -2032,7 +2311,8 @@ def main(argv=None) -> int:
     kernels = []
     for meta, k, launches in ((K1, k1, main_path.launches), (K3, k3, k3_launches),
                               (K4, k4, k4["launches"]), (K5, k5, k5["launches"]),
-                              (K6, k6, k6["launches"])):
+                              (K6, k6, k6["launches"]), (K1_I16, k1_i16, k1_i16["launches"]),
+                              (K1_F32, k1_f32, k1_f32["launches"])):
         bound_ms, bound_by = _bound(*k["work"])
         kernels.append(dict(meta, launches=launches, max_abs_err=k["max_abs_err"], ms=k["ms"],
                             plain_ms=k["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,

@@ -83,7 +83,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp, i32, vp, vp,          # q_all, qm, q_off, q_len
         vp, vp, vp,               # targets, lens, matrix32
         i32, i32, i32,            # G, B, N
-        i32, i32, i32,            # mode, go, ge
+        i32, i32, i32, i32,       # mode, go, ge, acc
         i32, i32,                 # threads per target, block
         vp, vp, vp,               # scratch, out, stream
     ]
@@ -115,12 +115,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ]
     lib.sift4g_dp_row_scratch_bytes.restype = ctypes.c_longlong
     lib.sift4g_dp_row_scratch_bytes.argtypes = [i32, i32]   # B, strips
-    lib.sift4g_int32_probe.restype = i32
-    lib.sift4g_int32_probe.argtypes = [
-        i32, i32, i32, i32,       # B, N, M, salt
-        i32,                      # pairs
-        vp, vp,                   # out, stream
-    ]
+    for probe in (lib.sift4g_int32_probe, lib.sift4g_s16x2_probe):
+        probe.restype = i32
+        probe.argtypes = [
+            i32, i32, i32, i32,   # B, N, M, salt
+            i32,                  # pairs
+            vp, vp,               # out, stream
+        ]
     return lib
 
 

@@ -10,7 +10,9 @@ block from the launch's shape.
 ``int32_probe`` (K6) is the port of the kernels in ``tools/bench_ab.py``
 ``run_roofline`` (``pairs=1``) and ``run_roofline_ilp``: M rounds of
 ``(a, b) = (max(a + 1, b), max(b - 1, a))`` on ``pairs`` (B, N) int32
-pairs, and each row's maximum.  Both wrappers dispatch on the device:
+pairs, and each row's maximum; ``packed=True`` runs the same update on
+int16 pairs, two elements a register (the packed DPX forms of K1's int16
+accumulator; no TPU counterpart).  Both wrappers dispatch on the device:
 the CPU runs the plain PyTorch versions, a CUDA device the kernels in
 ``csrc/dp_row_roofline.cu`` and ``csrc/int32_roofline.cu``, built on first
 use.  A CUDA call launches the kernel or raises; nothing falls back.
@@ -66,6 +68,10 @@ OPS_PER_FUSED_INSTRUCTION = 2
 # an H100, K5 issues 90 int32 instructions a clock per SM, 60 of them
 # max-family), so these at INT32_RESULTS_PER_SM_CLOCK bound the cell.
 MAX_INSTRUCTIONS_PER_CELL = {"SW": 4.5, "NW": 4, "HW": 4, "OV": 4}
+# the same for a SW cell of K1's int16 accumulator: the packed s16x2 forms
+# do two cells an instruction (csrc/sw_pair16.cuh), if they issue at the
+# int32 forms' rate
+MAX_INSTRUCTIONS_PER_CELL_I16 = MAX_INSTRUCTIONS_PER_CELL["SW"] / 2
 
 dp_row_launches = 0
 int32_launches = 0
@@ -215,22 +221,27 @@ def dp_row_probe(m, salt, *, B=1024, N=512, go=10, ge=1, device="cuda", out=None
 # ---------------------------------------------------------------- K6
 
 
-def int32_probe_plain(m, salt, *, B=1024, N=512, pairs=1, device="cpu"):
-    """(B,) int32 in plain PyTorch."""
+def int32_probe_plain(m, salt, *, B=1024, N=512, pairs=1, packed=False, device="cpu"):
+    """(B,) int32 in plain PyTorch; ``packed``: on int16, with a second
+    element a pair that starts one further on (a + 1, b - 1)."""
     dev = torch.device(device)
     i32 = torch.int32
     p = torch.arange(pairs, dtype=i32, device=dev)[:, None, None]
     a = (torch.arange(N, dtype=i32, device=dev)[None, None, :] + salt + p).expand(pairs, B, N)
     b = (torch.arange(B, dtype=i32, device=dev)[None, :, None] - salt - p).expand(pairs, B, N)
+    if packed:
+        a = torch.cat([a, a + 1]).to(torch.int16)
+        b = torch.cat([b, b - 1]).to(torch.int16)
     a, b = a.contiguous(), b.contiguous()
     for _ in range(int(m)):
         a, b = torch.maximum(a + 1, b), torch.maximum(b - 1, a)
-    return torch.maximum(a, b).amax(dim=(0, 2))
+    return torch.maximum(a, b).amax(dim=(0, 2)).to(i32)
 
 
-def int32_probe(m, salt, *, B=1024, N=512, pairs=1, device="cuda", out=None):
-    """(B,) int32: each row's maximum after ``m`` rounds (K6).  On a CUDA
-    device it launches the kernel, into ``out`` when given."""
+def int32_probe(m, salt, *, B=1024, N=512, pairs=1, packed=False, device="cuda", out=None):
+    """(B,) int32: each row's maximum after ``m`` rounds (K6; ``packed``:
+    its int16 form).  On a CUDA device it launches the kernel, into
+    ``out`` when given."""
     dev = _device(device)
     m, salt = int(m), int(salt)
     _check_args("int32_probe", m, salt, B, N)
@@ -239,7 +250,7 @@ def int32_probe(m, salt, *, B=1024, N=512, pairs=1, device="cuda", out=None):
     if out is not None:
         _check_out("int32_probe", out, B, dev)
     if dev.type == "cpu":
-        res = int32_probe_plain(m, salt, B=B, N=N, pairs=pairs, device=dev)
+        res = int32_probe_plain(m, salt, B=B, N=N, pairs=pairs, packed=packed, device=dev)
         return res if out is None else out.copy_(res)
     if dev.type != "cuda":
         raise ValueError(f"int32_probe runs on cpu or cuda, not {dev}")
@@ -248,7 +259,8 @@ def int32_probe(m, salt, *, B=1024, N=512, pairs=1, device="cuda", out=None):
         out = torch.empty(B, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.sift4g_int32_probe(B, N, m, salt, pairs, out.data_ptr(), stream)
+        probe = lib.sift4g_s16x2_probe if packed else lib.sift4g_int32_probe
+        rc = probe(B, N, m, salt, pairs, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"int32_probe kernel launch failed: CUDA error {rc}")
     global int32_launches
@@ -311,24 +323,26 @@ def dp_row_roofline(B=1024, N=512, go=10, ge=1, iters=6, lo=1_000, hi=4_000, dev
     }
 
 
-def int32_roofline(B=1024, N=512, iters=6, pairs=1, lo=None, hi=None, device="cuda"):
+def int32_roofline(B=1024, N=512, iters=6, pairs=1, lo=None, hi=None, packed=False,
+                   device="cuda"):
     """The int32 probe's marginal rate on the card (K6): 4 operations per
     element, pair and round (two adds, two maxes, as ``bench_ab.py:144``
-    counts them).  ``lo``/``hi`` default to the JAX rounds, 25,000 and
-    100,000 divided by ``pairs``.  Returns ``tops``, ``t_lo_s``,
-    ``t_hi_s`` and ``compile_s`` (the JAX key: the first call's wall
-    time, the kernels' build included).  Raises without a card."""
+    counts them; twice that under ``packed``, whose elements hold two).
+    ``lo``/``hi`` default to the JAX rounds, 25,000 and 100,000 divided
+    by ``pairs``.  Returns ``tops``, ``t_lo_s``, ``t_hi_s`` and
+    ``compile_s`` (the JAX key: the first call's wall time, the kernels'
+    build included).  Raises without a card."""
     dev = require_cuda(device)
     lo = 25_000 // pairs if lo is None else lo
     hi = 100_000 // pairs if hi is None else hi
     out = torch.empty(B, dtype=torch.int32, device=dev)
 
     def call(m, salt):
-        int32_probe(m, salt, B=B, N=N, pairs=pairs, device=dev, out=out)
+        int32_probe(m, salt, B=B, N=N, pairs=pairs, packed=packed, device=dev, out=out)
 
     compile_s, t_lo, t_hi = _differential(call, lo, hi, iters, dev)
     return {
-        "tops": 4 * pairs * B * N * (hi - lo) / (t_hi - t_lo) / 1e12,
+        "tops": (8 if packed else 4) * pairs * B * N * (hi - lo) / (t_hi - t_lo) / 1e12,
         "t_lo_s": t_lo,
         "t_hi_s": t_hi,
         "compile_s": compile_s,
@@ -384,7 +398,7 @@ _FUNC = re.compile(r"Function\s*:\s*")
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _PRED = re.compile(r"^@!?U?P[T0-9]+\s+")
 _ADDR = re.compile(r"0x([0-9a-f]+)")
-_K6_NAME = re.compile(r"int32_probe_kernelILi(\d+)E")
+_K6_NAME = re.compile(r"(?:int32|s16x2)_probe_kernelILi(\d+)E")
 MAX_OPCODES = ("IMNMX", "VIMNMX", "VIADDMNMX", "VIMNMX3")
 
 
@@ -392,19 +406,21 @@ def _n_max(ops: Counter) -> int:
     return sum(v for k, v in ops.items() if k in MAX_OPCODES)
 
 
-def sass_inner_loops(text: str) -> dict:
+def sass_inner_loops(text: str, full: bool = False) -> dict:
     """{function: [opcode Counter of each innermost loop]} from the output
     of ``cuobjdump -sass``: a loop runs from a branch's target address to
-    the branch, when the target lies before it."""
+    the branch, when the target lies before it.  Opcodes lose their
+    modifiers (``VIADDMNMX.S16x2`` counts as ``VIADDMNMX``) unless
+    ``full``."""
     funcs = {}
     for chunk in _FUNC.split(text)[1:]:
         insns = []
         for m in _INSN.finditer(chunk):
             op, _, args = _PRED.sub("", m.group(2).strip()).partition(" ")
-            insns.append((int(m.group(1), 16), op.split(".")[0], args))
+            insns.append((int(m.group(1), 16), op if full else op.split(".")[0], args))
         loops = []
         for addr, op, args in insns:
-            m = _ADDR.search(args) if op == "BRA" else None
+            m = _ADDR.search(args) if op.split(".")[0] == "BRA" else None
             if m and int(m.group(1), 16) < addr:
                 loops.append((int(m.group(1), 16), addr))
         funcs[chunk.split(None, 1)[0]] = [
@@ -454,17 +470,51 @@ def dp_row_probe_sass():
             for fn, loops in sass_inner_loops(text).items() if "dp_row_probe_kernel" in fn}
 
 
-def int32_probe_sass():
+# K1's SW kernels on slabs: the int32 body, the int16 pair body, the float
+# body, and their profile loads a column: one 16-byte load of 16 rows (two
+# in the pair kernel, one for each target)
+_K1_SW_NAME = re.compile(r"(sw_tiled_kernel|sw_pair16_kernel|sw_tiled_f32_kernel)"
+                         r"ILi0ENS_8SlabRows")
+K1_LOADS_PER_COLUMN = {"sw_tiled_kernel": 1, "sw_pair16_kernel": 2, "sw_tiled_f32_kernel": 1}
+K1_ROWS_PER_LOAD = 16
+
+
+def k1_sw_loop_sass():
+    """{kernel name: (opcode Counter of its column loop, with modifiers;
+    the cells, or cell pairs in the int16 kernel, that the loop's code
+    covers; instructions per cell or cell pair)} of K1's three SW kernels,
+    read with ``cuobjdump -sass`` from the built library.  The column loop
+    is the innermost loop with the most profile loads (``LDS.128``); nvcc
+    may put several versions of a step in it, of which a pass runs one,
+    so the cells are counted from its loads (16 rows each) and the
+    instructions a cell are those that its code holds for each; None
+    without ``cuobjdump``."""
+    text = library_sass()
+    if text is None:
+        return None
+    out = {}
+    for fn, loops in sass_inner_loops(text, full=True).items():
+        m = _K1_SW_NAME.search(fn)
+        if not m or not loops:
+            continue
+        ops = max(loops, key=lambda c: (c.get("LDS.128", 0), sum(c.values())))
+        cells = ops.get("LDS.128", 0) * K1_ROWS_PER_LOAD // K1_LOADS_PER_COLUMN[m.group(1)]
+        out[m.group(1)] = (ops, cells, sum(ops.values()) / cells if cells else None)
+    return out
+
+
+def int32_probe_sass(packed=False):
     """{pairs: (loop opcode Counter, rounds per loop pass, instructions
-    per element, pair and round)} of K6's variants, read with ``cuobjdump
-    -sass`` from the built library; None without ``cuobjdump``."""
+    per element, pair and round)} of K6's variants (``packed``: its int16
+    form's, an element there holding two), read with ``cuobjdump -sass``
+    from the built library; None without ``cuobjdump``."""
     text = library_sass()
     if text is None:
         return None
     out = {}
     for fn, ops in sass_loops(text).items():
         m = _K6_NAME.search(fn)
-        if not m:
+        if not m or ("s16x2_probe" in fn) != packed:
             continue
         pairs = int(m.group(1))
         rounds = _n_max(ops) / (2 * pairs)

@@ -18,6 +18,13 @@ two deliberate differences:
   through the E-value screen, so the kernel and this twin must agree on
   them too.
 
+The accumulator follows ``sift4g_tpu/align/pallas_sw.py:sw_scores_pallas_grouped``
+(``acc=``): ``"int"`` runs the recurrence in int32, ``"i16"`` in int16 with
+``NEG16`` as its sentinel (only where ``i16_admissible`` proves every value
+fits: the static ``max_qlen`` and ``max_sub`` bound it), ``"f32"`` in
+float32 with ``NEG_F32``; the final reductions run in int32, so all three
+give the same scores.
+
 The row recurrence is the decayed-prefix-max identity of ``align/xla.py``:
 ``E[i, j] = max(X0, max_{k<j}(G[i, k] + k ge)) - go - (j-1) ge`` with the
 prefix max taken by ``torch.cummax``.  It runs on whatever device the
@@ -31,6 +38,10 @@ import torch
 
 NEG = -(1 << 28)
 PAD_CODE = 31
+# the int16 and float32 accumulators' sentinels (pallas_sw.py:655 and :717)
+NEG16 = -16000
+NEG_F32 = -(1 << 22)
+ACCUMULATORS = ("int", "i16", "f32")
 
 SCREEN_ROW_BITS = 12          # batch width <= 4096 rows per group
 SCREEN_ROW_MASK = (1 << SCREEN_ROW_BITS) - 1
@@ -58,6 +69,45 @@ def matrix32_from_scorer(scorer, device) -> torch.Tensor:
     return torch.from_numpy(m32).to(device)
 
 
+def i16_admissible(max_qlen: int, max_sub: int, gap_open: int, gap_extend: int,
+                   N: int) -> bool:
+    """Whether an int16 accumulator holds every value of the DP of queries
+    of at most ``max_qlen`` residues against targets of at most ``N``,
+    with substitution scores of at most ``max_sub``: the rule of
+    ``sift4g_tpu/align/pallas_sw.py:698-701``."""
+    return (
+        max_qlen > 0
+        and max_sub > 0
+        and max_qlen * max_sub + gap_open + (N + 1) * gap_extend < -NEG16 // 2
+    )
+
+
+def accumulator(acc: str, max_qlen: int, max_sub: int, gap_open: int, gap_extend: int,
+                N: int):
+    """(dtype, sentinel) of the accumulator ``acc``; raises on an unknown
+    name and on an ``"i16"`` request that :func:`i16_admissible` refuses
+    (the JAX wrapper asserts it)."""
+    if acc == "int":
+        return torch.int32, NEG
+    if acc == "f32":
+        return torch.float32, NEG_F32
+    if acc != "i16":
+        raise ValueError(f"unknown accumulator {acc!r}; choose from {ACCUMULATORS}")
+    if not i16_admissible(max_qlen, max_sub, gap_open, gap_extend, N):
+        raise ValueError(
+            f"acc='i16' needs max_qlen/max_sub bounds that keep the DP inside int16: "
+            f"max_qlen * max_sub + gap_open + (N + 1) * gap_extend = {max_qlen} * {max_sub} "
+            f"+ {gap_open} + {N + 1} * {gap_extend} must be under {-NEG16 // 2}, with "
+            f"max_qlen and max_sub positive"
+        )
+    return torch.int16, NEG16
+
+
+def _wrap(x: int, dt) -> int:
+    """``x`` as ``dt`` holds it (int16 wraps, as the JAX kernel's astype)."""
+    return int(torch.tensor(x, dtype=torch.int64).to(dt)) if dt == torch.int16 else x
+
+
 def align_scores_grouped(
     q_codes_all: torch.Tensor,   # (Qm,) int32 concatenated queries
     q_offsets: torch.Tensor,     # (G,) int32
@@ -69,22 +119,29 @@ def align_scores_grouped(
     mode: str = "SW",
     gap_open: int = 10,
     gap_extend: int = 1,
+    max_qlen: int = 0,
+    max_sub: int = 0,
+    acc: str = "int",
 ) -> torch.Tensor:
     """Scores (G, B) int32: group g is query
     ``q_codes_all[q_offsets[g] : q_offsets[g] + q_lens[g]]`` against its
-    B targets.  Bytes past a target's length may be anything."""
+    B targets.  Bytes past a target's length may be anything.  ``acc``
+    picks the accumulator (:func:`accumulator`); ``max_qlen`` and
+    ``max_sub`` bound the queries' lengths and the substitution scores
+    for ``"i16"``."""
+    G, B, N = targets.shape
+    go, ge = int(gap_open), int(gap_extend)
+    dt, neg = accumulator(acc, max_qlen, max_sub, go, ge, N)
     if targets.is_cuda:
         from . import sw_grouped
 
         sw_grouped.twin_calls_on_cuda += 1
     dev = targets.device
-    G, B, N = targets.shape
-    go, ge = int(gap_open), int(gap_extend)
     i32 = torch.int32
     if G == 0 or B == 0:
         return torch.zeros((G, B), dtype=i32, device=dev)
 
-    m_flat = matrix32.to(dev, i32).clamp(-128, 127).reshape(-1)
+    m_flat = matrix32.to(dev, i32).clamp(-128, 127).to(dt).reshape(-1)
     t_idx = targets.to(torch.int64) & 31                       # (G, B, N)
     q_all = q_codes_all.to(dev, torch.int64)
     q_off = q_offsets.to(dev, torch.int64)
@@ -97,18 +154,18 @@ def align_scores_grouped(
     local = mode == "SW"
 
     if free_top:
-        h = torch.zeros((G, B, N), dtype=i32, device=dev)
+        h = torch.zeros((G, B, N), dtype=dt, device=dev)
     else:  # NW: H[0, j] = -(go + (j-1) ge)
-        h = (-(go + col * ge)).expand(G, B, N).contiguous()
-    f = torch.full((G, B, N), NEG, dtype=i32, device=dev)
+        h = (-(go + col * ge)).to(dt).expand(G, B, N).contiguous()
+    f = torch.full((G, B, N), neg, dtype=dt, device=dev)
     has_cols = lens >= 1                                       # (G, B)
     valid = col.to(torch.int64) < lens[..., None]              # (G, B, N)
     last = (lens - 1).clamp(min=0)[..., None]                  # (G, B, 1)
     best = torch.zeros((G, B), dtype=i32, device=dev)          # SW
     col_best = torch.full((G, B), NEG, dtype=i32, device=dev)  # OV
-    neg_col = torch.full((G, B, 1), NEG, dtype=i32, device=dev)
-    jge1 = (col + 1) * ge
-    goge = go + col * ge
+    neg_col = torch.full((G, B, 1), neg, dtype=dt, device=dev)
+    jge1 = ((col + 1) * ge).to(dt)
+    goge = (go + col * ge).to(dt)
 
     n_rows = int(q_len.max())
     for i in range(n_rows):
@@ -118,8 +175,8 @@ def align_scores_grouped(
         if free_left:
             left0, left0_prev = 0, 0
         else:
-            left0 = -(go + i * ge)
-            left0_prev = 0 if i == 0 else -(go + (i - 1) * ge)
+            left0 = _wrap(-(go + i * ge), dt)
+            left0_prev = 0 if i == 0 else _wrap(-(go + (i - 1) * ge), dt)
         fn = torch.maximum(h - go, f - ge)
         diag = torch.cat([torch.full_like(neg_col, left0_prev), h[..., :-1]], dim=-1)
         g = torch.maximum(diag + s, fn)
@@ -131,17 +188,19 @@ def align_scores_grouped(
         act = active[:, None, None]
         h = torch.where(act, hn, h)
         f = torch.where(act, fn, f)
+        # the reductions run in int32 (a no-op for the int accumulator)
         if local:
-            row_best = torch.where(valid, hn, 0).amax(dim=-1)
+            row_best = torch.where(valid, hn.to(i32), 0).amax(dim=-1)
             best = torch.where(active[:, None], torch.maximum(best, row_best), best)
         elif mode == "OV":
-            at_last = torch.where(has_cols, hn.gather(-1, last)[..., 0], NEG)
+            at_last = torch.where(has_cols, hn.gather(-1, last)[..., 0].to(i32), NEG)
             col_best = torch.where(
                 active[:, None], torch.maximum(col_best, at_last), col_best
             )
 
     if mode == "SW":
         return best
+    h = h.to(i32)
     if mode == "NW":
         return torch.where(has_cols, h.gather(-1, last)[..., 0], NEG).to(i32)
     row_best = torch.where(valid, h, NEG).amax(dim=-1)

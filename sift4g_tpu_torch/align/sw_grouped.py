@@ -12,16 +12,21 @@ the device of their tensors: CPU tensors go to the plain PyTorch versions
 kernel or raises; there is no fallback to the plain version.
 
 K1, K3 and K4 run the tiled body of ``csrc/sw_tiled.cuh``: T threads
-score one target, each holding ``TILE_ROWS`` query rows.
+score one target, each holding ``TILE_ROWS`` query rows.  K1 takes the
+JAX wrapper's accumulator, ``acc=``: ``"int"`` (int32, the main path's),
+``"f32"`` (the same body on float) or ``"i16"`` (``csrc/sw_pair16.cuh``:
+T threads score a pair of targets in int16 halves, only where
+``scan.i16_admissible`` proves every value fits; refused otherwise).
 ``tile_geometry`` picks T and the block from the launch's shape and the
 card's SM count (K4's launch is one group, G = 1); ``threads_per_target=``
 forces T (tests and ``chip_smoke.py`` run every value).
 
 Counters (plain integers a run reads to show which path it took):
-``kernel_launches`` counts K1 launches made here, ``resident_launches``
-K3 launches, ``single_launches`` K4 launches, and ``twin_calls_on_cuda``
-calls of the plain versions on CUDA tensors (only a comparison against a
-kernel makes those).
+``kernel_launches`` counts K1 launches made here on int32,
+``i16_launches`` and ``f32_launches`` K1's other accumulators,
+``resident_launches`` K3 launches, ``single_launches`` K4 launches, and
+``twin_calls_on_cuda`` calls of the plain versions on CUDA tensors (only
+a comparison against a kernel makes those).
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ import torch
 from . import _build, scan
 
 MODE_IDS = {"SW": 0, "NW": 1, "HW": 2, "OV": 3}
+# the accumulators of csrc/sw_grouped.cu (enum Accumulator)
+ACC_IDS = {"int": 0, "i16": 1, "f32": 2}
 
 # the tiled body's query rows per thread (kRows of csrc/sw_tiled.cuh)
 TILE_ROWS = 16
@@ -46,14 +53,19 @@ WARPS_PER_SM = 16
 MAX_BLOCK = 128
 
 kernel_launches = 0
+i16_launches = 0
+f32_launches = 0
 resident_launches = 0
 single_launches = 0
 twin_calls_on_cuda = 0
 
 
 def reset_counters() -> None:
-    global kernel_launches, resident_launches, single_launches, twin_calls_on_cuda
+    global kernel_launches, i16_launches, f32_launches, resident_launches, single_launches
+    global twin_calls_on_cuda
     kernel_launches = 0
+    i16_launches = 0
+    f32_launches = 0
     resident_launches = 0
     single_launches = 0
     twin_calls_on_cuda = 0
@@ -130,19 +142,28 @@ def sw_scores_grouped(
     mode: str = "SW",
     gap_open: int = 10,
     gap_extend: int = 1,
+    max_qlen: int = 0,
+    max_sub: int = 0,
+    acc: str = "int",
     threads_per_target: int | None = None,
 ) -> torch.Tensor:
     """Scores (G, B) int32: group g = query g against its B targets.
+    ``acc`` picks the accumulator (``scan.accumulator``: an unknown one,
+    or ``"i16"`` where ``max_qlen`` and ``max_sub`` do not prove that
+    every value fits int16, raises before any work).
     ``threads_per_target`` forces the kernel's T (see
-    :func:`tile_geometry`); the plain version ignores it."""
+    :func:`tile_geometry`; under ``"i16"`` T threads score a pair of
+    targets); the plain version ignores it."""
     if mode not in MODE_IDS:
         raise ValueError(f"unknown alignment mode {mode!r}")
     _threads_checked(threads_per_target)
+    scan.accumulator(acc, max_qlen, max_sub, gap_open, gap_extend, targets.shape[-1])
     dev = targets.device
     if dev.type == "cpu":
         return scan.align_scores_grouped(
             q_codes_all, q_offsets, q_lens, targets, target_lens, matrix32,
             mode=mode, gap_open=gap_open, gap_extend=gap_extend,
+            max_qlen=max_qlen, max_sub=max_sub, acc=acc,
         )
     if dev.type != "cuda":
         raise ValueError(f"sw_scores_grouped runs on cpu or cuda, not {dev}")
@@ -158,26 +179,34 @@ def sw_scores_grouped(
     if G > 65535:
         raise ValueError(f"{G} groups exceed the launch grid (65535)")
 
-    T, block = launch_geometry(G, B, N, dev, threads_per_target)
+    # the launch's thread groups: a target each, or a pair under int16
+    width = (B + 1) // 2 if acc == "i16" else B
+    T, block = launch_geometry(G, width, N, dev, threads_per_target)
     lib = _build.load()
     out = torch.empty((G, B), dtype=torch.int32, device=dev)
-    # (H, F) of a pass's last query row per (group, column, target); freed
-    # to the caching allocator on return, which reuses it only for work
-    # queued after this launch on the same stream
-    scratch = torch.empty((G, N, B, 2), dtype=torch.int32, device=dev)
+    # (H, F) of a pass's last query row per (group, column, thread group):
+    # int32 or float pairs, or int16 pairs of pairs; freed to the caching
+    # allocator on return, which reuses it only for work queued after this
+    # launch on the same stream
+    scratch = torch.empty((G, N, width, 2), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sift4g_sw_grouped(
             q_codes_all.data_ptr(), q_codes_all.shape[0],
             q_offsets.data_ptr(), q_lens.data_ptr(),
             targets.data_ptr(), target_lens.data_ptr(), matrix32.data_ptr(),
-            G, B, N, MODE_IDS[mode], int(gap_open), int(gap_extend), T, block,
+            G, B, N, MODE_IDS[mode], int(gap_open), int(gap_extend), ACC_IDS[acc], T, block,
             scratch.data_ptr(), out.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"sw_grouped kernel launch failed: CUDA error {rc}")
-    global kernel_launches
-    kernel_launches += 1
+    global kernel_launches, i16_launches, f32_launches
+    if acc == "i16":
+        i16_launches += 1
+    elif acc == "f32":
+        f32_launches += 1
+    else:
+        kernel_launches += 1
     return out
 
 

@@ -105,16 +105,20 @@ def grouped_launch(device, groups=64, batch=1024, n=512, m=360, seed=42):
 
 
 def bench_grouped_cuda(device, groups=64, batch=1024, n=512, m=360, iters=10,
-                       warmup_budget_s=90.0, warmup_max=10, m_lo=120, marginal_iters=5):
-    """Best, median and marginal GCUPS of K1 at the bench launch."""
+                       warmup_budget_s=90.0, warmup_max=10, m_lo=120, marginal_iters=5,
+                       acc="int", max_qlen=0, max_sub=0):
+    """Best, median and marginal GCUPS of K1 at the bench launch, on the
+    accumulator ``acc`` (``max_qlen`` and ``max_sub`` bound ``"i16"``)."""
     from .align import sw_grouped
     from .align.roofline import event_ms
 
     qa, qo, lens, m32, q_lens, new_slab = grouped_launch(device, groups, batch, n, m)
     qlen_hi, qlen_lo = q_lens(m), q_lens(m_lo)
 
+    kw = dict(acc=acc, max_qlen=max_qlen, max_sub=max_sub)
+
     def call(qlen, t):
-        return event_ms(lambda: sw_grouped.sw_scores_grouped(qa, qo, qlen, t, lens, m32),
+        return event_ms(lambda: sw_grouped.sw_scores_grouped(qa, qo, qlen, t, lens, m32, **kw),
                         device) / 1e3
 
     cells = groups * m * batch * n

@@ -26,6 +26,13 @@
 // blocks resident per SM, enough warps to hide the two-instruction
 // dependency of each chain.  The block's maximum is reduced with
 // __reduce_max_sync and shared memory.
+//
+// s16x2_probe_kernel: the same update on int16 pairs, two elements a
+// register (element h of a pair starts h further on: a = n + salt + p + h,
+// b = b - salt - p - h), through __viaddmax_s16x2 (VIADDMNMX.S16x2), the
+// values wrapping in int16: whether the packed DPX forms, which K1's int16
+// accumulator runs on (sw_pair16.cuh), issue at the int32 forms' rate.
+// It has no TPU counterpart (Mosaic could not lower 16-bit vector max).
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -74,6 +81,49 @@ __global__ void __launch_bounds__(kMaxThreads) int32_probe_kernel(
   }
 }
 
+template <int PAIRS>
+__global__ void __launch_bounds__(kMaxThreads) s16x2_probe_kernel(
+    int N, int M, int salt, int32_t* __restrict__ out) {
+  const int row = blockIdx.x;
+  int acc = INT_MIN;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    uint32_t a[PAIRS], b[PAIRS];
+#pragma unroll
+    for (int p = 0; p < PAIRS; ++p) {
+      const int a0 = n + salt + p, b0 = row - salt - p;
+      a[p] = (a0 & 0xffff) | (static_cast<uint32_t>(a0 + 1) << 16);
+      b[p] = (b0 & 0xffff) | (static_cast<uint32_t>(b0 - 1) << 16);
+    }
+#pragma unroll 4
+    for (int r = 0; r < M; ++r) {
+#pragma unroll
+      for (int p = 0; p < PAIRS; ++p) {
+        const uint32_t na = __viaddmax_s16x2(a[p], 0x00010001u, b[p]);
+        b[p] = __viaddmax_s16x2(b[p], 0xffffffffu, a[p]);
+        a[p] = na;
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < PAIRS; ++p) {
+      const uint32_t m = __vmaxs2(a[p], b[p]);
+      acc = max(acc, max(static_cast<int>(static_cast<int16_t>(m & 0xffff)),
+                         static_cast<int>(m) >> 16));
+    }
+  }
+
+  __shared__ int warp_max[kMaxThreads / 32];
+  acc = __reduce_max_sync(0xffffffffu, acc);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_max[warp] = acc;
+  __syncthreads();
+  if (warp == 0) {
+    int v = lane < (int)(blockDim.x >> 5) ? warp_max[lane] : INT_MIN;
+    v = __reduce_max_sync(0xffffffffu, v);
+    if (lane == 0) out[row] = v;
+  }
+}
+
 }  // namespace
 }  // namespace sift4g
 
@@ -87,6 +137,24 @@ extern "C" int sift4g_int32_probe(int B, int N, int M, int salt, int pairs,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SIFT4G_LAUNCH(P) \
   sift4g::int32_probe_kernel<P><<<B, threads, 0, s>>>(N, M, salt, out)
+  switch (pairs) {
+    case 1: SIFT4G_LAUNCH(1); break;
+    case 2: SIFT4G_LAUNCH(2); break;
+    case 4: SIFT4G_LAUNCH(4); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SIFT4G_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The packed probe's C entry, as sift4g_int32_probe's.
+extern "C" int sift4g_s16x2_probe(int B, int N, int M, int salt, int pairs,
+                                  int32_t* out, void* stream) {
+  if (B <= 0 || N <= 0 || M < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = N >= sift4g::kMaxThreads ? sift4g::kMaxThreads : (N + 31) / 32 * 32;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SIFT4G_LAUNCH(P) \
+  sift4g::s16x2_probe_kernel<P><<<B, threads, 0, s>>>(N, M, salt, out)
   switch (pairs) {
     case 1: SIFT4G_LAUNCH(1); break;
     case 2: SIFT4G_LAUNCH(2); break;

@@ -53,6 +53,11 @@
 // nothing.  The wavefront costs T - 1 idle steps per pass and the last
 // pass computes up to T * kRows - 1 padding rows.
 //
+// The body is a template on its accumulator: int32 for K1, K3 and K4, and
+// float for K1 acc="f32" (sw_tiled_f32_kernel: the same sequence in FADD
+// and FMNMX, an I2F after each score's sign extend).  K1 acc="i16" runs
+// the body on int16 pairs, two targets a thread (sw_pair16.cuh).
+//
 // Contract (checked by the Python wrappers): T is a power of two <= 32
 // that divides blockDim.x, a multiple of 32 no larger than kTileBlock; a
 // row's codes at j >= len may hold anything and are never read as matrix
@@ -61,6 +66,8 @@
 // query buffer, for memory safety only.
 
 #pragma once
+
+#include <type_traits>
 
 #include "sw_grouped.cuh"
 
@@ -83,13 +90,40 @@ __device__ __forceinline__ int sext_byte(uint32_t w) {
   return r;
 }
 
-template <int MODE, class Rows>
-__global__ void __launch_bounds__(kTileBlock) sw_tiled_kernel(
+// The body's accumulator: int32 (K1, K3, K4) or float (K1 acc="f32",
+// sift4g_tpu/align/pallas_sw.py:714-717: exact, since every value is an
+// integer far inside 2^24).  The int32 instantiation is the body as it
+// was before the float one existed, instruction for instruction.
+template <class V>
+struct Acc;
+
+template <>
+struct Acc<int> {
+  using Pair = int2;
+  static constexpr int kNegV = kNeg;
+  static __device__ __forceinline__ int of(int x) { return x; }
+  static __device__ __forceinline__ int to_int(int x) { return x; }
+  static __device__ __forceinline__ int2 pair(int h, int f) { return make_int2(h, f); }
+};
+
+template <>
+struct Acc<float> {
+  using Pair = float2;
+  static constexpr float kNegV = -(1 << 22);  // the JAX package's f32 sentinel
+  static __device__ __forceinline__ float of(int x) { return __int2float_rn(x); }
+  static __device__ __forceinline__ int to_int(float x) { return __float2int_rn(x); }
+  static __device__ __forceinline__ float2 pair(float h, float f) { return make_float2(h, f); }
+};
+
+template <int MODE, class Rows, class V>
+__device__ __forceinline__ void sw_tiled_body(
     const int32_t* __restrict__ q_all, int qm,
     const int32_t* __restrict__ q_off, const int32_t* __restrict__ q_len,
     Rows rows, const int32_t* __restrict__ lens,
     const int32_t* __restrict__ matrix32, int B, int N, int go, int ge, int T,
-    int2* __restrict__ scratch, int32_t* __restrict__ out) {
+    typename Acc<V>::Pair* __restrict__ scratch, int32_t* __restrict__ out) {
+  using A = Acc<V>;
+  using Pair = typename A::Pair;
   constexpr bool free_top = MODE != NW;
   constexpr bool free_left = MODE == SW || MODE == OV;
   constexpr bool row_max = MODE == HW || MODE == OV;
@@ -111,7 +145,8 @@ __global__ void __launch_bounds__(kTileBlock) sw_tiled_kernel(
   const int off = Rows::grouped ? min(max(q_off[g], 0), qm) : 0;
   const int qlen = min(max(q_len[g], 0), qm - off);
   const int32_t* q = q_all + off;
-  int2* hf = scratch + (size_t)g * N * B + b;  // hf[j * B] = (H, F)
+  Pair* hf = scratch + (size_t)g * N * B + b;  // hf[j * B] = (H, F)
+  const V vgo = A::of(go), vge = A::of(ge), neg = A::kNegV;
 
   // every lane of the warp runs to its longest row and stays in the shuffles
   const int wlen = __reduce_max_sync(kAll, len);
@@ -119,9 +154,9 @@ __global__ void __launch_bounds__(kTileBlock) sw_tiled_kernel(
   const int TR = T * kRows;
   const int npass = (qlen + TR - 1) / TR;
 
-  int best = 0;         // SW: best cell, zero floor
-  int col_best = kNeg;  // OV: best of the last column over the query's rows
-  int fin = kNeg;       // NW: H of the last row at the last column; HW/OV: its row max
+  V best = 0;          // SW: best cell, zero floor
+  V col_best = neg;    // OV: best of the last column over the query's rows
+  V fin = neg;         // NW: H of the last row at the last column; HW/OV: its row max
   for (int p = 0; p < npass; ++p) {
     const int p0 = p * TR;
     const int prow = p0 % kProfRows;
@@ -146,24 +181,25 @@ __global__ void __launch_bounds__(kTileBlock) sw_tiled_kernel(
     const bool last = p == npass - 1;
     const int qi0 = p0 + t * kRows;  // this thread's first query row
 
-    int H[kRows], E[kRows], M[kRows];
+    V H[kRows], E[kRows], M[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      H[r] = free_left ? 0 : -(go + (qi0 + r) * ge);  // left boundary H[i+1, 0]
-      E[r] = H[r] - go;                               // E at the first column
-      M[r] = kNeg;
+      H[r] = A::of(free_left ? 0 : -(go + (qi0 + r) * ge));  // left boundary H[i+1, 0]
+      E[r] = H[r] - vgo;                                     // E at the first column
+      M[r] = neg;
     }
     // the row above at the column before: the boundary H[qi0, 0]
-    int hd = (free_left || qi0 == 0) ? 0 : -(go + (qi0 - 1) * ge);
+    V hd = A::of((free_left || qi0 == 0) ? 0 : -(go + (qi0 - 1) * ge));
     // this thread's last row at its last column, and that column's code
-    int hl = 0, fl = kNeg, cl = 0;
+    V hl = 0, fl = neg;
+    int cl = 0;
 
     // thread 0 reads ahead: the codes of the next 4 columns, and the
     // previous pass's (H, F) four columns ahead
     uint32_t wn = 0;
-    int2 pf[4];
+    Pair pf[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) pf[k] = make_int2(0, kNeg);
+    for (int k = 0; k < 4; ++k) pf[k] = A::pair(0, neg);
     if (t == 0 && len > 0) {
       wn = rows.load4(row, 0, len);
       if (!first) {
@@ -181,7 +217,8 @@ __global__ void __launch_bounds__(kTileBlock) sw_tiled_kernel(
       for (int k = 0; k < 4; ++k) {
         const int s = s0 + k;
         const int j = s - t;
-        int hu = hl, fu = fl, c = cl;
+        V hu = hl, fu = fl;
+        int c = cl;
         if (T > 1) {
           hu = __shfl_up_sync(kAll, hl, 1, T);
           fu = __shfl_up_sync(kAll, fl, 1, T);
@@ -190,8 +227,8 @@ __global__ void __launch_bounds__(kTileBlock) sw_tiled_kernel(
         if (t == 0) {
           c = (w >> (8 * k)) & 31;
           if (first) {
-            hu = free_top ? 0 : -(go + j * ge);  // boundary row H[0, j+1]
-            fu = kNeg;
+            hu = A::of(free_top ? 0 : -(go + j * ge));  // boundary row H[0, j+1]
+            fu = neg;
           } else {
             hu = pf[k].x;
             fu = pf[k].y;
@@ -201,20 +238,21 @@ __global__ void __launch_bounds__(kTileBlock) sw_tiled_kernel(
         if (j >= 0 && j < len) {
           const uint4 v = *reinterpret_cast<const uint4*>(my_prof + c * kProfStride);
           const uint32_t pw[4] = {v.x, v.y, v.z, v.w};
-          int up = hu, f = fu, dg = hd, h_even = 0;
+          V up = hu, f = fu, dg = hd, h_even = 0;
 #pragma unroll
           for (int r = 0; r < kRows; ++r) {
-            int sc;
+            int si;
             switch (r & 3) {
-              case 0: sc = sext_byte<0>(pw[r >> 2]); break;
-              case 1: sc = sext_byte<1>(pw[r >> 2]); break;
-              case 2: sc = sext_byte<2>(pw[r >> 2]); break;
-              default: sc = sext_byte<3>(pw[r >> 2]); break;
+              case 0: si = sext_byte<0>(pw[r >> 2]); break;
+              case 1: si = sext_byte<1>(pw[r >> 2]); break;
+              case 2: si = sext_byte<2>(pw[r >> 2]); break;
+              default: si = sext_byte<3>(pw[r >> 2]); break;
             }
-            f = max(up - go, f - ge);
-            const int gg = MODE == SW ? max(max(dg + sc, f), 0) : max(dg + sc, f);
-            const int h = max(gg, E[r]);
-            E[r] = max(E[r] - ge, gg - go);
+            const V sc = A::of(si);
+            f = max(up - vgo, f - vge);
+            const V gg = MODE == SW ? max(max(dg + sc, f), V(0)) : max(dg + sc, f);
+            const V h = max(gg, E[r]);
+            E[r] = max(E[r] - vge, gg - vgo);
             dg = H[r];
             H[r] = h;
             up = h;
@@ -228,7 +266,7 @@ __global__ void __launch_bounds__(kTileBlock) sw_tiled_kernel(
           hl = up;
           fl = f;
           cl = c;
-          if (!last && t == T - 1) hf[(size_t)j * B] = make_int2(up, f);
+          if (!last && t == T - 1) hf[(size_t)j * B] = A::pair(up, f);
         }
       }
     }
@@ -250,7 +288,7 @@ __global__ void __launch_bounds__(kTileBlock) sw_tiled_kernel(
 
   if (qlen == 0) {
     // the boundary row is the last row
-    fin = MODE == NW ? -(go + (len - 1) * ge) : 0;
+    fin = A::of(MODE == NW ? -(go + (len - 1) * ge) : 0);
   }
   if (T > 1) {
     if (MODE == SW) {
@@ -269,22 +307,47 @@ __global__ void __launch_bounds__(kTileBlock) sw_tiled_kernel(
   if (live && t == 0) {
     int result;
     if (MODE == SW) {
-      result = best;
+      result = A::to_int(best);
     } else if (MODE == NW) {
-      result = len > 0 ? fin : kNeg;
+      result = len > 0 ? A::to_int(fin) : kNeg;
     } else if (MODE == HW) {
-      result = len > 0 ? fin : kNeg;
+      result = len > 0 ? A::to_int(fin) : kNeg;
     } else {
-      result = max(max(len > 0 ? fin : kNeg, col_best), 0);
+      result = max(max(len > 0 ? A::to_int(fin) : kNeg, A::to_int(col_best)), 0);
     }
     out[gb] = result;
   }
 }
 
+// K1, K3 and K4: the body on int32.
+template <int MODE, class Rows>
+__global__ void __launch_bounds__(kTileBlock) sw_tiled_kernel(
+    const int32_t* __restrict__ q_all, int qm,
+    const int32_t* __restrict__ q_off, const int32_t* __restrict__ q_len,
+    Rows rows, const int32_t* __restrict__ lens,
+    const int32_t* __restrict__ matrix32, int B, int N, int go, int ge, int T,
+    int2* __restrict__ scratch, int32_t* __restrict__ out) {
+  sw_tiled_body<MODE, Rows, int>(q_all, qm, q_off, q_len, rows, lens, matrix32, B, N, go,
+                                 ge, T, scratch, out);
+}
+
+// K1 acc="f32": the body on float.
+template <int MODE, class Rows>
+__global__ void __launch_bounds__(kTileBlock) sw_tiled_f32_kernel(
+    const int32_t* __restrict__ q_all, int qm,
+    const int32_t* __restrict__ q_off, const int32_t* __restrict__ q_len,
+    Rows rows, const int32_t* __restrict__ lens,
+    const int32_t* __restrict__ matrix32, int B, int N, int go, int ge, int T,
+    float2* __restrict__ scratch, int32_t* __restrict__ out) {
+  sw_tiled_body<MODE, Rows, float>(q_all, qm, q_off, q_len, rows, lens, matrix32, B, N,
+                                   go, ge, T, scratch, out);
+}
+
 // Launches the kernel for `mode` on `stream` with T threads per target and
-// `block` threads per block; neither synchronises nor allocates; returns
+// `block` threads per block, on the accumulator V (int: sw_tiled_kernel;
+// float: sw_tiled_f32_kernel); neither synchronises nor allocates; returns
 // cudaGetLastError() (0 on success).  scratch holds G * N * B int2.
-template <class Rows>
+template <class Rows, class V = int>
 int launch_sw_tiled(const int32_t* q_all, int qm, const int32_t* q_off,
                     const int32_t* q_len, Rows rows, const int32_t* lens,
                     const int32_t* matrix32, int G, int B, int N, int mode,
@@ -298,10 +361,15 @@ int launch_sw_tiled(const int32_t* q_all, int qm, const int32_t* q_off,
   const int per_block = block / T;
   const dim3 grid((B + per_block - 1) / per_block, G);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int2* scr = static_cast<int2*>(scratch);
-#define SIFT4G_LAUNCH(M)                                                      \
-  sw_tiled_kernel<M, Rows><<<grid, block, 0, s>>>(                            \
-      q_all, qm, q_off, q_len, rows, lens, matrix32, B, N, go, ge, T, scr, out)
+  auto* scr = static_cast<typename Acc<V>::Pair*>(scratch);
+#define SIFT4G_LAUNCH(M)                                                          \
+  if constexpr (std::is_same<V, float>::value) {                                  \
+    sw_tiled_f32_kernel<M, Rows><<<grid, block, 0, s>>>(                          \
+        q_all, qm, q_off, q_len, rows, lens, matrix32, B, N, go, ge, T, scr, out); \
+  } else {                                                                        \
+    sw_tiled_kernel<M, Rows><<<grid, block, 0, s>>>(                              \
+        q_all, qm, q_off, q_len, rows, lens, matrix32, B, N, go, ge, T, scr, out); \
+  }
   switch (mode) {
     case SW: SIFT4G_LAUNCH(SW); break;
     case NW: SIFT4G_LAUNCH(NW); break;

@@ -261,9 +261,11 @@ def make_grouped_sharded(
     screen_k: int = 0,
 ):
     """The grouped scorer (K1) sharded over the GROUP axis: each device
-    scores its complete (query, target-chunk) groups.  ``max_qlen``,
-    ``max_sub`` and ``acc`` select the TPU kernel's int16 path, which K1
-    does not have; they are accepted and unused.
+    scores its complete (query, target-chunk) groups.  ``acc`` picks K1's
+    accumulator and ``max_qlen``/``max_sub`` bound an ``"i16"`` one
+    (``scan.accumulator``): an unknown accumulator, or an ``"i16"`` bound
+    that no width admits, is refused here; one that the targets' width N
+    breaks, when the function is called, before any shard is placed.
 
     fn(q_codes_all (Qm,) i32 replicated, q_offsets (G,) i32 sharded,
        q_lens (G,) i32 sharded, targets (G, B, N) i8 sharded on axis 0,
@@ -275,10 +277,15 @@ def make_grouped_sharded(
     (``align/scan.screen_topk_words``)."""
     score = _scorer(kernel, "grouped")
     i32 = torch.int32
+    # at width 0 the bound is the weakest it can be: what fails here fails at every width
+    scan.accumulator(acc, max_qlen, max_sub, gap_open, gap_extend, 0)
+    bounds = dict(max_qlen=max_qlen, max_sub=max_sub, acc=acc)
 
     def fn(q_all, q_offsets, q_lens, targets, target_lens, matrix32, *smin):
         if len(smin) != (1 if screen_k else 0):
             raise TypeError("the smin argument comes with screen_k > 0, and only then")
+        width = (targets[0] if isinstance(targets, (list, tuple)) else targets).shape[-1]
+        scan.accumulator(acc, max_qlen, max_sub, gap_open, gap_extend, width)
         qa, ms = _replicated(mesh, q_all, i32), _replicated(mesh, matrix32, i32)
         go, gl = _sharded(mesh, q_offsets, 0, i32), _sharded(mesh, q_lens, 0, i32)
         tg = _sharded(mesh, targets, 0, torch.int8)
@@ -287,7 +294,7 @@ def make_grouped_sharded(
         out = []
         for i in range(len(mesh)):
             s = score(qa[i], go[i], gl[i], tg[i], tl[i], ms[i],
-                      mode=mode, gap_open=gap_open, gap_extend=gap_extend)
+                      mode=mode, gap_open=gap_open, gap_extend=gap_extend, **bounds)
             out.append(scan.screen_topk_words(s, sm[i], screen_k) if screen_k else s)
         return out
 

@@ -76,14 +76,15 @@ def test_roofline_pct_divides_by_the_operations_bound(marginal):
     assert bench.roofline_fields(bound, None, peak)["roofline_pct"] == pytest.approx(100.0)
 
 
-@pytest.mark.parametrize("cmd", ["roofline2", "roofline4", "dprow", "g64", "g128"])
+@pytest.mark.parametrize("cmd", ["roofline2", "roofline4", "roofline16", "dprow", "g64", "g128",
+                                 "ab"])
 def test_bench_ab_card_commands_fail_without_a_card(no_gpu, cmd, capsys):
     assert bench_ab.main([cmd]) == 1
     out = capsys.readouterr()
     assert "error: no CUDA device" in out.err and out.out == ""
 
 
-@pytest.mark.parametrize("cmd", ["ab", "unroll", "unroll4"])
+@pytest.mark.parametrize("cmd", ["unroll", "unroll4"])
 def test_bench_ab_refuses_tpu_knobs(cmd, capsys):
     assert bench_ab.main([cmd]) == 2
     err = capsys.readouterr().err

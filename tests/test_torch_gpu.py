@@ -1,5 +1,6 @@
-"""The CUDA kernels (K1 on slabs, K3 on the resident database, K4 on
-int32 rows, the probes K5 and K6) against their plain PyTorch versions,
+"""The CUDA kernels (K1 on slabs, with its int32, int16 and float32
+accumulators, K3 on the resident database, K4 on int32 rows, the probes
+K5 and K6) against their plain PyTorch versions,
 and the sharded factories on two shards of the card, on the card.  K1, K3
 and K4 run at every forced ``threads_per_target`` of the tiled body, at
 the query lengths where its passes change and the target lengths where
@@ -181,6 +182,41 @@ def test_tiled_kernels_at_every_T_and_pass_boundary(cuda, mode, gaps):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("acc", ["i16", "f32"])
+@pytest.mark.parametrize("mode", MODES)
+def test_kernel_accumulators_match_plain_and_int(cuda, mode, acc):
+    """K1 ``acc="i16"`` (the int16 pair kernel) and ``"f32"`` against their
+    plain versions and K1 ``"int"``, at every T: an odd batch (a pair
+    with no partner), ragged and zero lengths with garbage past them, and
+    queries of several passes at every T (600 rows > 32 x 16)."""
+    G, B, N, qlens = 4, 33, 256, (600, 0, 17, 513)
+    args = _inputs(11, G, B, N, qlens, cuda)
+    m32 = scan.matrix32_from_scorer(_blosum62(), cuda)
+    kw = dict(mode=mode, max_qlen=600, max_sub=11, acc=acc)
+    ref = scan.align_scores_grouped(*args, m32, mode=mode)
+    plain = scan.align_scores_grouped(*args, m32, **kw)
+    assert torch.equal(plain, ref)
+    counter = f"{acc}_launches"
+    for T in (None, *GROUP_THREADS):
+        launches = getattr(sw_grouped, counter), sw_grouped.kernel_launches
+        got = sw_grouped.sw_scores_grouped(*args, m32, threads_per_target=T, **kw)
+        torch.cuda.synchronize()
+        assert (getattr(sw_grouped, counter), sw_grouped.kernel_launches) == (
+            launches[0] + 1, launches[1])
+        assert torch.equal(got, ref), f"{acc} T={T}"
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_an_inadmissible_int16_bound(cuda):
+    args = _inputs(11, 2, 8, 512, (100, 7), cuda)
+    m32 = scan.matrix32_from_scorer(_blosum62(), cuda)
+    launches = sw_grouped.i16_launches
+    with pytest.raises(ValueError, match="int16"):
+        sw_grouped.sw_scores_grouped(*args, m32, max_qlen=700, max_sub=11, acc="i16")
+    assert sw_grouped.i16_launches == launches
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize(
     "case",
     [(1024, 512, 10, 1, 40, 3), (300, 200, 11, 2, 25, -7), (5, 16, 5, 2, 0, 1)],
@@ -242,18 +278,22 @@ def test_dp_row_probe_entry_refuses_a_strip_count_off_its_width(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True], ids=["int32", "s16x2"])
 @pytest.mark.parametrize("pairs", [1, 2, 4])
-def test_int32_probe_matches_plain(cuda, pairs):
+def test_int32_probe_matches_plain(cuda, pairs, packed):
     from sift4g_tpu_torch.align import roofline
 
     launches = roofline.int32_launches
-    for B, N, M, salt in [(1024, 512, 300, 3), (70, 37, 41, -5), (3, 1100, 9, 2)]:
-        got = roofline.int32_probe(M, salt, B=B, N=N, pairs=pairs, device=cuda)
-        ref = roofline.int32_probe_plain(M, salt, B=B, N=N, pairs=pairs, device=cuda)
+    # the int16 form also past 32,767, where its values wrap
+    cases = [(1024, 512, 300, 3), (70, 37, 41, -5), (3, 1100, 9, 2)]
+    for B, N, M, salt in cases + ([(3, 70, 32_760, 2)] if packed else []):
+        got = roofline.int32_probe(M, salt, B=B, N=N, pairs=pairs, packed=packed, device=cuda)
+        ref = roofline.int32_probe_plain(M, salt, B=B, N=N, pairs=pairs, packed=packed,
+                                         device=cuda)
         torch.cuda.synchronize()
         assert got.dtype == torch.int32 and got.shape == (B,)
         assert torch.equal(got, ref)
-    assert roofline.int32_launches == launches + 3
+    assert roofline.int32_launches == launches + 3 + packed
 
 
 @pytest.mark.gpu

@@ -259,6 +259,30 @@ def test_int32_plain_matches_run_roofline_ilp(monkeypatch, pairs, case):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("pairs", [1, 2, 4])
+@pytest.mark.parametrize("case", [(8, 16, 7, 3), (40, 24, 13, -4), (6, 5, 32_760, 2)],
+                         ids=["B8-M7", "B40-M13", "B6-M32760-wraps"])
+def test_int32_plain_packed_matches_int16_elements(pairs, case):
+    """K6's int16 form: every element of a pair runs the int32 update
+    in int16, wrapping (the last case passes 32,767), the second starting
+    one further on; rows take the maximum over both."""
+    B, N, M, salt = case
+    ref = np.full(B, np.iinfo(np.int32).min, np.int64)
+    for p in range(pairs):
+        for h in range(2):
+            a = (np.arange(N)[None, :] + salt + p + h).repeat(B, 0).astype(np.int16)
+            b = (np.arange(B)[:, None] - salt - p - h).repeat(N, 1).astype(np.int16)
+            with np.errstate(over="ignore"):
+                for _ in range(M):
+                    a, b = np.maximum(a + np.int16(1), b), np.maximum(b - np.int16(1), a)
+            ref = np.maximum(ref, np.maximum(a, b).max(axis=1))
+    got = roofline.int32_probe_plain(M, salt, B=B, N=N, pairs=pairs, packed=True)
+    assert got.dtype == torch.int32 and got.shape == (B,)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert torch.equal(roofline.int32_probe(M, salt, B=B, N=N, pairs=pairs, packed=True,
+                                            device="cpu"), got)
+
+
 def test_wrappers_on_cpu_run_the_plain_versions():
     before = (roofline.dp_row_launches, roofline.int32_launches)
     got = roofline.dp_row_probe(12, 5, B=3, N=40, go=11, ge=2, device="cpu")
