@@ -7,7 +7,8 @@
 commit unpacked with ``git archive``) also imports DIR's package under a
 name of its own, builds DIR's kernels through DIR's own wrappers and
 times its K1, K3, K4 and K5 beside this checkout's, in turns (parent,
-this, this, parent) on the same inputs, in phases 3, 3b, 5, 5b, 6 and 9b
+this, this, parent) on the same inputs, in phases 3, 3b (the parent's K1
+against this K2), 5, 5b, 6 and 9b
 (and prints, in phase 1, which scorer kernels' and K6's SASS is the
 parent's): K1, K3, K4 and K5 must stay within 3 % of the parent's in
 phases 3, 5, 5b, 6 and 9b.
@@ -43,6 +44,15 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    with ``--backend cuda``, held byte for byte to ``--backend native``,
    and a matrix-mode pass on 5 queries held the same way.  K1's launch
    counter must show the main path went through it;
+4c. the long tail: phase 4's database plus about 2,000 sequences of
+   2,049 to 35,213 residues (one in eight holding a mutated query
+   segment) and a family of 1,500 long proteins holding the first query,
+   the 50-query CLI run with ``--backend cuda`` byte-identical to
+   ``--backend native``; K2's launches counted (more than 0), each held
+   to its plain version on its own inputs, and the largest launch of
+   each rung timed against K1 on the same inputs in turns; the family's
+   wide launch must go to K1, held to its plain version and timed against
+   K2; every launch's pick within 1.25x of the other kernel;
 4b. the resident path: the same 50-query run with ``--resident-db on``,
    byte-identical to phase 4's ``--backend native`` outputs; then 300
    queries (the 50 and 250 database sequences, 20 substitutions each) at
@@ -58,11 +68,21 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    beside its design bound ((16 + 1) / (16 T) bytes per cell);
 5b. every K3 launch of phase 4b's cold default-flag run held the same
    way, and the largest timed, with K1 on the same windows as a slab;
-3b. (run after phase 3) K1 on the launch shapes the TPU's long-target
-   kernel K2 served: 256 targets of 8,192 residues and 32 Titin-class
-   targets of 35,008, a 360-residue query each, exact against the plain
-   version (the first at every forced T) and timed; K1 must be no slower
-   than its plain version there;
+3b. (run after phase 3) K2, the long-target kernel (a target's strips of
+   512 columns over the warps of a block, query rows streamed through
+   them), against its plain version, exact, in all four modes: at its
+   edges (N of 5 whole strips and of 4.56; query lengths 0, 1, 31, 32,
+   33, 511, 512, 513 and 1,025; target lengths 0, 1, 15, 16, 17, 511,
+   512, 513, 1,023, 1,024, 1,025, N - 1 and N; gaps 10/1, 11/2 and 1/3)
+   at every split of the strips over warps, then at K2's launch shapes
+   (256 targets of 8,192 residues and 32 Titin-class targets of 35,008,
+   a 360-residue query each) at every split; timed there against its
+   plain version and this tree's K1 in turns (and, under --parent, the
+   parent's K1): K2 must beat all three; then the K1/K2 crossover, one
+   group of 64 to 4,096 full targets at each rung from 3,072 to 8,192
+   and queries of 360 and 1,500 rows, K2 equal to K1 on each and timed
+   against it in turns: the aligner's route (``batch._long_route``)
+   must pick the faster or one within 1.25x of it;
 6. K5, the row-engine probe (columns in registers, query rows streamed
    through a lane wavefront), against its plain version, exact: the JAX
    shape B=1024 N=512 at 300 rows and at the bench's 16,000
@@ -119,7 +139,8 @@ Phases, in order; the first failure ends the run with a non-zero exit:
        ``make_sharded_scores``, ``make_sharded_topk_align`` (k=64),
        ``make_grouped_sharded`` with and without the screen,
        ``make_grouped_resident_sharded``, ``make_grouped_long_sharded``
-       (G=1, B=256, N=8,192) and ``make_sharded_pipeline_step`` on a
+       (G=1, B=256, N=8,192; K2 on every shard) and
+       ``make_sharded_pipeline_step`` on a
        (2, 2) grid.  Each factory's launches are counted with the counters
        set to 0 just before it and read just after (its reference is
        computed outside that window); no plain version may run on the
@@ -224,6 +245,12 @@ K3 = {
     "route": "cuda",
     "source": "sift4g_tpu_torch/csrc/sw_grouped_resident.cu",
     "replaces": "sift4g_tpu/align/pallas_sw.py:774",
+}
+K2 = {
+    "name": "sw_grouped_long",
+    "route": "cuda",
+    "source": "sift4g_tpu_torch/csrc/sw_grouped_long.cu",
+    "replaces": "sift4g_tpu/align/pallas_sw.py:457",
 }
 K5 = {
     "name": "dp_row_probe",
@@ -703,44 +730,168 @@ def phase_timing(dev, card):
     return err, cells / ms / 1e6
 
 
+# K2's edges (tests/test_torch_gpu.py holds the same): target lengths on
+# lane (16), strip (512) and N edges, 0 and 1; query lengths around the
+# 32-lane wavefront and the 512-row tiles of strips in turn; N a whole
+# number of strips and one that cuts the last; gaps with go < ge
+LONG_EDGE_QLENS = (0, 1, 31, 32, 33, 511, 512, 513, 1025)
+LONG_EDGE_TLENS = (0, 1, 15, 16, 17, 511, 512, 513, 1023, 1024, 1025)
+LONG_EDGE_N = (2560, 2336)
+LONG_EDGE_GAPS = ((10, 1), (11, 2), (1, 3))
+# the K1/K2 crossover grid of phase 3b: the long rungs up to 8,192,
+# launches of 64 to 4,096 full targets (one group), a query of the CLI's
+# mean length and one of three K1 passes
+LONG_GRID_N = (3072, 4096, 6144, 8192)
+LONG_GRID_B = (64, 256, 1024, 4096)
+LONG_GRID_M = (360, 1500)
+# the aligner's pick between K1 and K2 may take this much longer than the
+# other kernel (near the crossover the two are within it of each other)
+ROUTE_SLACK = 1.25
+
+
+def long_warps(N):
+    """Every split of N's strips over warps: the geometry's own (None),
+    1 to min(strips, 16), and 16 (idle warps where N has fewer strips)."""
+    from sift4g_tpu_torch.align import sw_grouped
+
+    strips = -(-N // sw_grouped.LONG_STRIP)
+    top = min(strips, sw_grouped.MAX_LONG_WARPS)
+    return (None, *range(1, top + 1), *((sw_grouped.MAX_LONG_WARPS,) if top < 16 else ()))
+
+
+def _k2_against_plain(what, args, m32, ref, warps, **kw):
+    """K2 at each forced warps on ``args``, each launch equal to ``ref``."""
+    import torch
+    from sift4g_tpu_torch.align import sw_grouped
+
+    for w in warps:
+        got = sw_grouped.sw_scores_grouped_long(*args, m32, warps_per_target=w, **kw)
+        torch.cuda.synchronize()
+        err = int((got.long() - ref.long()).abs().max()) if ref.numel() else 0
+        check(err == 0, f"K2 {what}, warps={w}: differs from its plain version by {err}")
+
+
+def _turns(a, b, iters):
+    """``a`` and ``b`` timed in turns (a, b, b, a); each its better time."""
+    ta, tb = [], []
+    for fn, out in ((a, ta), (b, tb), (b, tb), (a, ta)):
+        out.append(_time_ms(fn, iters, warmup=1))
+    return min(ta), min(tb)
+
+
 def phase_long_rungs(dev, card):
-    """K1 on the launch shapes of the TPU's long-target kernel K2, which
-    K1 serves in the port: exact against the plain version, and timed."""
+    """3b: K2, the long-target kernel, against its plain version at its
+    edges and at K2's two launch shapes at every split of their strips
+    over warps, then timed there beside its plain version and this tree's
+    K1 (and, under --parent, the parent's K1) in turns."""
     import torch
     from sift4g_tpu_torch.align import scan, sw_grouped
 
     rng = np.random.default_rng(3)
     m32 = scan.matrix32_from_scorer(SimpleNamespace(matrix=random_matrix(rng)), dev)
+    t0 = time.perf_counter()
+    n_launch = 0
+    for N in LONG_EDGE_N:
+        lens = rng.integers(0, N + 1, (len(LONG_EDGE_QLENS), 16))
+        lens[:, : len(LONG_EDGE_TLENS)] = LONG_EDGE_TLENS
+        lens[:, -2:] = (N - 1, N)
+        q_all, offs, qlens = query_inputs(rng, LONG_EDGE_QLENS)
+        targets = rng.integers(-128, 128, (*lens.shape, N)).astype(np.int8)
+        mask = np.arange(N)[None, None, :] < lens[..., None]
+        targets[mask] = rng.integers(0, 26, int(mask.sum()))
+        args = [torch.from_numpy(a).to(dev) for a in (q_all, offs, qlens, targets,
+                                                      lens.astype(np.int32))]
+        for mode in MODES:
+            for go, ge in LONG_EDGE_GAPS:
+                kw = dict(mode=mode, gap_open=go, gap_extend=ge)
+                ref = scan.align_scores_grouped(*args, m32, **kw)
+                _k2_against_plain(f"edges N={N} {mode} gaps {go}/{ge}", args, m32, ref,
+                                  long_warps(N), n_chunk=16, m_cap=max(LONG_EDGE_QLENS), **kw)
+                n_launch += len(long_warps(N))
+    say(f"[3b] K2 == plain at its edges: N in {LONG_EDGE_N} x queries {LONG_EDGE_QLENS} x "
+        f"targets {LONG_EDGE_TLENS}, N - 1, N x gaps {LONG_EDGE_GAPS} x four modes x warps "
+        f"{long_warps(LONG_EDGE_N[0])}: {n_launch} launches, max |diff| 0 "
+        f"({time.perf_counter() - t0:.1f} s)")
+
     rows = []
     for name, B, N in (("long-target", 256, 8192), ("Titin-class", 32, 35008)):
         args = grouped_inputs(rng, 1, B, N, (360,), dev, zero_len=False)
         ref = scan.align_scores_grouped(*args, m32)
-        # every forced T at the first shape; the geometry's own at both
-        for T in all_T() if name == "long-target" else (None,):
-            got = sw_grouped.sw_scores_grouped(*args, m32, threads_per_target=T)
-            torch.cuda.synchronize()
-            err = int((got.long() - ref.long()).abs().max())
-            check(err == 0, f"K1 at the {name} shape, T={T}, differs from its plain version "
-                            f"by {err}")
+        _k2_against_plain(f"at the {name} shape", args, m32, ref, long_warps(N), n_chunk=64,
+                          m_cap=360)
+
+        def k2():
+            return sw_grouped.sw_scores_grouped_long(*args, m32, n_chunk=64, m_cap=360)
 
         def k1():
             return sw_grouped.sw_scores_grouped(*args, m32)
 
-        ms = _time_ms(k1, iters=5, warmup=1)
+        k1_ms, ms = _turns(k1, k2, 3)
         plain_ms = _time_ms(lambda: scan.align_scores_grouped(*args, m32), iters=1, warmup=0)
         nbytes, insns, true = _work("slab", args, {"mode": "SW"})
-        T, block = sw_grouped.launch_geometry(1, B, N, dev)
-        say(f"[3b] {name} G=1 B={B} N={N} m=360 ({true / 1e9:.3f} G cells), {card}: K1 "
-            f"{ms:.3f} ms = {true / ms / 1e6:.3f} GCUPS at (T, block) = ({T}, {block}); plain "
-            f"{plain_ms:.3f} ms; kernel == plain (max |diff| 0"
-            f"{', at every forced T' if name == 'long-target' else ''})")
-        check(ms <= plain_ms, f"K1 at the {name} shape ({ms:.3f} ms) is slower than its plain "
-                              f"version ({plain_ms:.3f} ms)")
+        strips, warps, blocks = sw_grouped.long_geometry(1, B, N)
+        say(f"[3b] {name} G=1 B={B} N={N} m=360 ({true / 1e9:.3f} G cells), {card}: K2 "
+            f"{ms:.3f} ms = {true / ms / 1e6:.3f} GCUPS ({strips} strips on {warps} warps a "
+            f"target, {blocks} blocks); this tree's K1 {k1_ms:.3f} ms in turns "
+            f"({k1_ms / ms:.2f}x); plain {plain_ms:.3f} ms; K2 == plain at warps "
+            f"{long_warps(N)} (max |diff| 0)")
+        check(ms < k1_ms, f"K2 at the {name} shape ({ms:.3f} ms) loses to this tree's K1 "
+                          f"({k1_ms:.3f} ms)")
+        check(ms < plain_ms, f"K2 at the {name} shape ({ms:.3f} ms) loses to its plain version "
+                             f"({plain_ms:.3f} ms)")
         if PARENT["k"]:
-            parent_turns("3b", f"K1 at the {name} shape", k1,
-                         lambda: PARENT["k"].k1(*args, m32), 1, card, true)
-        rows.append(dict(name=name, B=B, N=N, ms=ms, plain_ms=plain_ms, work=(nbytes, insns),
-                         T=T))
+            par_ms, this_ms = parent_turns(
+                "3b", f"the parent's K1 against K2 at the {name} shape", k2,
+                lambda: PARENT["k"].k1(*args, m32), 3, card, true)
+            check(this_ms < par_ms, f"K2 at the {name} shape loses to the parent's K1")
+        per_w = {w: _time_ms(lambda w=w: sw_grouped.sw_scores_grouped_long(
+            *args, m32, n_chunk=64, m_cap=360, warps_per_target=w), iters=3, warmup=1)
+            for w in (1, 2, 4, 8, 16)}
+        say(f"[3b]   {name}: K2 at forced warps " + ", ".join(
+            f"{w}: {t:.3f} ms" for w, t in per_w.items()))
+        rows.append(dict(name=name, B=B, N=N, ms=ms, k1_ms=k1_ms, plain_ms=plain_ms,
+                         work=(nbytes, insns)))
+    # the K1/K2 crossover: one group of B full targets at each long rung
+    # and query length; K2 == K1 on every launch, K2 == plain on the widest
+    # of the lowest rung; the aligner's route must pick the faster kernel
+    # or one within ROUTE_SLACK of it
+    from sift4g_tpu_torch.align.batch import _long_route
+
+    grid = []
+    for m in LONG_GRID_M:
+        for N in LONG_GRID_N:
+            for B in LONG_GRID_B:
+                args = grouped_inputs(rng, 1, B, N, (m,), dev, zero_len=False)
+                if (m, N, B) == (LONG_GRID_M[0], LONG_GRID_N[0], LONG_GRID_B[-1]):
+                    ref = scan.align_scores_grouped(*args, m32)
+                    _k2_against_plain(f"on the launch B={B} N={N}", args, m32, ref, (None,))
+                    del ref
+
+                def k2():
+                    return sw_grouped.sw_scores_grouped_long(*args, m32)
+
+                def k1():
+                    return sw_grouped.sw_scores_grouped(*args, m32)
+
+                check(torch.equal(k1(), k2()), f"K1 and K2 differ at B={B} N={N} m={m}")
+                k1_ms, ms = _turns(k1, k2, 2)
+                on_k2 = _long_route([(m, np.full(B, N))])
+                grid.append((m, N, B, ms, k1_ms, on_k2))
+                say(f"[3b] crossover G=1 B={B} N={N} m={m} (full targets), {card}: K2 "
+                    f"{ms:.3f} ms, K1 {k1_ms:.3f} ms in turns ({k1_ms / ms:.2f}x); the route "
+                    f"picks {'K2' if on_k2 else 'K1'}")
+                del args
+    for m in LONG_GRID_M:
+        for B in LONG_GRID_B:
+            wins = [N for mm, N, b, ms, k1_ms, _ in grid if (mm, b) == (m, B) and ms < k1_ms]
+            say(f"[3b] m={m}, B={B} full targets: K2 wins at rungs {wins or 'none'} of "
+                f"{LONG_GRID_N}")
+    for m, N, B, ms, k1_ms, on_k2 in grid:
+        picked, other = (ms, k1_ms) if on_k2 else (k1_ms, ms)
+        check(picked <= ROUTE_SLACK * other,
+              f"the route's {'K2' if on_k2 else 'K1'} at B={B} N={N} m={m} takes {picked:.3f} "
+              f"ms against {other:.3f} ms")
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -781,6 +932,7 @@ def _counts():
             "i16_launches": sw_grouped.i16_launches,
             "f32_launches": sw_grouped.f32_launches,
             "resident_launches": sw_grouped.resident_launches,
+            "long_launches": sw_grouped.long_launches,
             "twin_calls_on_cuda": sw_grouped.twin_calls_on_cuda}
 
 
@@ -871,7 +1023,8 @@ def phase_main_path(tmp):
     check(len(recorded) == launches, f"{len(recorded)} launches recorded, {launches} counted")
     return SimpleNamespace(data=data, q=q, db=db, native_out=outs["native"], q5=q5, cuda_s=cuda_s,
                            native_matrix_out=outs["native"] + "-matrix",
-                           launches=launches, recorded=recorded)
+                           launches=launches, recorded=recorded,
+                           long_launches=counts["long_launches"])
 
 
 def _write_query_set(main, tmp, n_extra, seed):
@@ -966,6 +1119,195 @@ def phase_resident_path(main, tmp):
         say(f"[4b]   {tag:10s} " + " | ".join(f"{x:.3f}" for x in secs)
             + f" | {a['cells'] / a['seconds'] / 1e9:.2f}")
     return c_cold["resident_launches"], recorded
+
+
+# the long tail added to phase 4's database: about 2,000 sequences of
+# 2,049 (past the 2,048 rung, the last one below LONG_RUNG) to 35,213
+# residues (Swiss-Prot's longest, titin), log-uniform (a spread over every
+# long rung, not a fit to Swiss-Prot's length histogram), one in eight a
+# random flank around a mutated copy of a query segment, so that it
+# becomes a candidate; and a family of 1,500 long proteins of 2,049 to
+# 3,072 residues that share the first query as a domain (a random flank
+# around a mutated copy of it), whose launch at the 3,072 rung holds more
+# cells than K2 can take before K1 would be done
+LONG_TAIL = dict(n=2000, lo=2049, hi=35213, homolog_every=8, family=1500,
+                 family_lo=2049, family_hi=3072, seed=11)
+
+
+def _long_tail_db(main, tmp):
+    """Phase 4's database plus the long tail and the family, written to a
+    directory of its own with phase 4's queries and substitution files."""
+    from sift4g_tpu_torch.synthetic import STD, _freqs
+
+    data = os.path.join(tmp, "long-tail")
+    os.mkdir(data)
+    for f in os.listdir(main.data):
+        if f.endswith(".subst"):
+            shutil.copy(os.path.join(main.data, f), data)
+    shutil.copy(main.q, os.path.join(data, "queries.fa"))
+    db = os.path.join(data, "db.fa")
+    shutil.copy(main.db, db)
+    rng = np.random.default_rng(LONG_TAIL["seed"])
+    letters = np.frombuffer(bytes(bytearray((STD + ord("A")).astype(np.uint8))), dtype="S1")
+    with open(main.q) as fh:
+        queries = [r.split("\n", 1)[1].replace("\n", "") for r in fh.read().split(">")[1:]]
+    lens = np.exp(rng.uniform(np.log(LONG_TAIL["lo"]), np.log(LONG_TAIL["hi"] + 1),
+                              LONG_TAIL["n"])).astype(np.int64)
+    lens[:2] = (LONG_TAIL["lo"], LONG_TAIL["hi"])
+    pool = rng.choice(letters, size=int(lens.sum()), p=_freqs()).tobytes().decode("ascii")
+    pos, n_hom = 0, 0
+    with open(db, "a") as fh:
+        for i, n in enumerate(lens):
+            seq = pool[pos : pos + n]
+            pos += n
+            if i % LONG_TAIL["homolog_every"] == 0:
+                src = queries[int(rng.integers(len(queries)))]
+                a = int(rng.integers(0, max(1, len(src) - 100)))
+                seg = np.array(list(src[a : a + int(rng.integers(100, 400))]))
+                mut = rng.random(len(seg)) < 0.15
+                seg[mut] = rng.choice(letters.astype(str), int(mut.sum()))
+                at = int(rng.integers(0, n - len(seg)))
+                seq = seq[:at] + "".join(seg) + seq[at + len(seg) :]
+                n_hom += 1
+            fh.write(f">LONG_{i}\n{seq}\n")
+        dom = np.array(list(queries[0]))
+        fam = rng.integers(LONG_TAIL["family_lo"], LONG_TAIL["family_hi"] + 1, LONG_TAIL["family"])
+        for i, n in enumerate(fam):
+            seg = dom.copy()
+            mut = rng.random(len(seg)) < 0.15
+            seg[mut] = rng.choice(letters.astype(str), int(mut.sum()))
+            flank = rng.choice(letters, size=int(n) - len(seg), p=_freqs()).tobytes().decode()
+            at = int(rng.integers(0, len(flank) + 1))
+            fh.write(f">FAMILY_{i}\n{flank[:at]}{''.join(seg)}{flank[at:]}\n")
+    return data, int(lens.sum() + fam.sum()), n_hom
+
+
+def phase_long_tail(main, tmp, card):
+    """4c: the 50-query CLI on phase 4's database plus the long tail and
+    the family, with --backend cuda against --backend native
+    (byte-identical); K2's launches counted, each held to its plain
+    version on its own inputs, and timed with this tree's K1 on the same
+    inputs in turns (the largest launch of each rung); K1's launches at
+    long rungs held to plain and timed against K2 the same way."""
+    import torch
+    from sift4g_tpu_torch.align import scan, sw_grouped
+    from sift4g_tpu_torch.align.batch import LONG_RUNG
+
+    t0 = time.perf_counter()
+    data, residues, n_hom = _long_tail_db(main, tmp)
+    q, db = os.path.join(data, "queries.fa"), os.path.join(data, "db.fa")
+    say(f"[4c] database: phase 4's plus {LONG_TAIL['n']} sequences of {LONG_TAIL['lo']}-"
+        f"{LONG_TAIL['hi']} residues ({n_hom} holding a mutated query segment) and a family of "
+        f"{LONG_TAIL['family']} of {LONG_TAIL['family_lo']}-{LONG_TAIL['family_hi']} holding "
+        f"the first query ({residues} residues) ({time.perf_counter() - t0:.1f} s)")
+    outs = {b: os.path.join(tmp, f"out-long-{b}") for b in ("native", "cuda")}
+    for o in outs.values():
+        os.mkdir(o)
+    t0 = time.perf_counter()
+    _run_cli(["--backend", "native", "--overlap", "off", "-q", q, "-d", db, "--subst", data,
+              "--out", outs["native"]])
+    native_s = time.perf_counter() - t0
+    with recorded_launches("sw_scores_grouped") as k1_rec:
+        wall, _, c, recorded = _counted_run(
+            ["--backend", "cuda", "--overlap", "off", "-q", q, "-d", db, "--subst", data,
+             "--out", outs["cuda"]], "4c", record="sw_scores_grouped_long")
+    wide = [r for r in k1_rec if r[0][3].shape[2] >= LONG_RUNG]
+    k1_rec.clear()
+    check(c["long_launches"] > 0, "the long-tail run launched K2 no time")
+    check(bool(wide), "no launch at a rung of LONG_RUNG or more went to K1")
+    check(len(recorded) == c["long_launches"],
+          f"{len(recorded)} K2 launches recorded, {c['long_launches']} counted")
+    check(c["twin_calls_on_cuda"] == 0, "the long-tail run called a plain version on the card")
+    n = _same_tree(outs["cuda"], outs["native"], "long tail")
+    say(f"[4c] --backend cuda {wall:.2f} s, --backend native {native_s:.2f} s; {n} "
+        f".SIFTprediction files byte-identical; K2 {c['long_launches']} launches, K1 "
+        f"{c['kernel_launches']}")
+
+    max_err, by_rung, n_at = 0, {}, {}
+    for args, kw, out in recorded:
+        N = args[3].shape[2]
+        check(N >= LONG_RUNG, f"K2 launched at rung {N}, under LONG_RUNG {LONG_RUNG}")
+        ref = scan.align_scores_grouped(*args[:6], mode=kw["mode"], gap_open=kw["gap_open"],
+                                        gap_extend=kw["gap_extend"])
+        torch.cuda.synchronize()
+        err = int((out.long() - ref.long()).abs().max()) if out.numel() else 0
+        max_err = max(max_err, err)
+        G, B = args[4].shape
+        padded = int(args[2].long().sum()) * B * N
+        true = int((args[2].long() * args[4].long().sum(dim=1)).sum())
+        check(err == 0, f"K2 launch G={G} B={B} N={N}: differs from plain by {err}")
+        del ref
+        n_at[N] = n_at.get(N, 0) + 1
+        if N not in by_rung or padded > by_rung[N][0]:
+            by_rung[N] = (padded, true, args, kw)
+    say(f"[4c] every K2 launch == plain on its own inputs (max |diff| {max_err})")
+    rows, largest = [], None
+    for N in sorted(by_rung):
+        padded, true, args, kw = by_rung[N]
+        G, B = args[4].shape
+        k1_kw = {k: v for k, v in kw.items() if k in ("mode", "gap_open", "gap_extend")}
+
+        def k2():
+            return sw_grouped.sw_scores_grouped_long(*args, **kw)
+
+        def k1():
+            return sw_grouped.sw_scores_grouped(*args[:6], **k1_kw)
+
+        check(torch.equal(k1(), k2()), f"K1 and K2 differ on the rung-{N} launch")
+        k1_ms, ms = _turns(k1, k2, 2)
+        strips, warps, _ = sw_grouped.long_geometry(G, B, N)
+        live = int((args[4] > 0).sum())
+        say(f"[4c] rung {N}: {n_at[N]} launches; largest G={G} B={B} ({padded / 1e9:.3f} G padded, "
+            f"{true / 1e9:.3f} G true cells, {live} targets), {card}: K2 "
+            f"{ms:.3f} ms ({true / ms / 1e6:.2f} true GCUPS, {warps} warps a target) against "
+            f"K1 {k1_ms:.3f} ms in turns ({k1_ms / ms:.2f}x)")
+        per_w = {w: _time_ms(lambda w=w: sw_grouped.sw_scores_grouped_long(
+            *args, **dict(kw, warps_per_target=w)), iters=2, warmup=1) for w in (1, 2, 4, 8, 16)}
+        say(f"[4c]   rung {N}: K2 at forced warps " + ", ".join(
+            f"{w}: {t:.3f} ms" for w, t in per_w.items()))
+        rows.append((N, ms, k1_ms))
+        check(ms <= ROUTE_SLACK * k1_ms, f"the route's K2 at rung {N} takes {ms:.3f} ms "
+                                         f"against K1's {k1_ms:.3f} ms")
+        if largest is None or padded > largest[0]:
+            largest = (padded, true, args, kw, k1_ms, ms)
+    for args, kw, out in wide:
+        G, B = args[4].shape
+        N = args[3].shape[2]
+        gaps = {k: v for k, v in kw.items() if k in ("mode", "gap_open", "gap_extend")}
+        ref = scan.align_scores_grouped(*args[:6], **gaps)
+        check(torch.equal(out, ref), f"K1's launch G={G} B={B} N={N}: differs from plain")
+        del ref
+
+        def k2():
+            return sw_grouped.sw_scores_grouped_long(*args[:6], **gaps)
+
+        def k1():
+            return sw_grouped.sw_scores_grouped(*args[:6], **gaps)
+
+        check(torch.equal(k2(), out), f"K2 differs from K1 on the launch G={G} B={B} N={N}")
+        k1_ms, k2_ms = _turns(k1, k2, 2)
+        true = int((args[2].long() * args[4].long().sum(dim=1)).sum())
+        say(f"[4c] rung {N}: K1's launch G={G} B={B} ({true / 1e9:.3f} G true cells, "
+            f"{int((args[4] > 0).sum())} targets) == plain, {card}: K1 {k1_ms:.3f} ms against "
+            f"K2 {k2_ms:.3f} ms in turns ({k2_ms / k1_ms:.2f}x)")
+        check(k1_ms <= ROUTE_SLACK * k2_ms, f"the route's K1 at rung {N} takes {k1_ms:.3f} ms "
+                                            f"against K2's {k2_ms:.3f} ms")
+    padded, true, args, kw, k1_ms, ms = largest
+    plain_ms = _time_ms(lambda: scan.align_scores_grouped(
+        *args[:6], mode=kw["mode"], gap_open=kw["gap_open"], gap_extend=kw["gap_extend"]),
+        iters=1, warmup=0)
+    work = _work("slab", args, kw)[:2]
+    say(f"[4c] largest K2 launch G={args[4].shape[0]} B={args[4].shape[1]} "
+        f"N={args[3].shape[2]}, {card}: K2 {ms:.3f} ms, K1 {k1_ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms")
+    losing = [N for N, k2_ms, k1_ms in rows if k2_ms >= k1_ms]
+    say(f"[4c] rungs where K1 beats K2 on K2's largest launch: {losing or 'none'}; K1 took "
+        f"{len(wide)} launches at rungs of LONG_RUNG ({LONG_RUNG}) or more")
+    recorded.clear()
+    wide.clear()
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, work=work,
+                launches=c["long_launches"], rungs=rows)
 
 
 def _bound(nbytes, insns):
@@ -1673,10 +2015,11 @@ def phase_factories(dev, card):
         _sync_all()
         secs = time.perf_counter() - t0
         c = counts[name] = dict(K4=sw_grouped.single_launches, K1=sw_grouped.kernel_launches,
-                                K3=sw_grouped.resident_launches,
+                                K2=sw_grouped.long_launches, K3=sw_grouped.resident_launches,
                                 twin=sw_grouped.twin_calls_on_cuda)
         check(c["twin"] == 0, f"{name}: a plain version ran on the card {c['twin']} times")
-        check(c["K4"] + c["K1"] + c["K3"] >= n, f"{name}: launched fewer kernels than shards")
+        check(c["K4"] + c["K1"] + c["K2"] + c["K3"] >= n,
+              f"{name}: launched fewer kernels than shards")
         return out, secs
 
     def same(name, got, want, secs, of=None):
@@ -1729,12 +2072,15 @@ def phase_factories(dev, card):
                     q3, o3, ql3, dbs, st, tl3, m32)
     same("make_grouped_resident_sharded", torch.cat([s.to(dev) for s in got]), want, secs)
 
-    # long targets: one group, rows on the batch axis (K2's launch shape)
+    # long targets: one group, rows on the batch axis (K2's launch shape),
+    # K2 on every shard
     B_long = 256 - 256 % n
     args = grouped_inputs(rng, 1, B_long, 8192, (360,), dev, zero_len=False)
-    want = sw_grouped.sw_scores_grouped(*args, m32)
+    want = sw_grouped.sw_scores_grouped_long(*args, m32)
     got, secs = run("make_grouped_long_sharded", sharded.make_grouped_long_sharded(mesh),
                     *args, m32)
+    check(counts["make_grouped_long_sharded"]["K2"] == n,
+          "make_grouped_long_sharded did not launch K2 on every shard")
     same("make_grouped_long_sharded", torch.cat([s.to(dev) for s in got], dim=1), want, secs)
 
     # batched queries on a (2, 2) grid: query blocks x database shards
@@ -1759,6 +2105,7 @@ def phase_factories(dev, card):
     check(k4 > 0, "the sharded factories launched K4 no time")
     say(f"[9c] K4 launches on its path (make_sharded_scores, make_sharded_topk_align, "
         f"make_sharded_pipeline_step): {k4}; K1 {sum(c['K1'] for c in counts.values())}, "
+        f"K2 {sum(c['K2'] for c in counts.values())}, "
         f"K3 {sum(c['K3'] for c in counts.values())}; plain versions on the card 0")
     torch.cuda.empty_cache()
     return max_err, k4
@@ -2285,6 +2632,7 @@ def main(argv=None) -> int:
     tmp = tempfile.mkdtemp(prefix="sift4g-smoke-")
     try:
         main_path = run_phase("4", phase_main_path, tmp)
+        k2 = run_phase("4c", phase_long_tail, main_path, tmp, card)
         k3_launches, k3_recorded = run_phase("4b", phase_resident_path, main_path, tmp)
         k4 = run_phase("9", phase_sharded, dev, card, main_path, tmp)
         run_phase("10", phase_predict, dev, main_path, tmp)
@@ -2294,9 +2642,16 @@ def main(argv=None) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     k1 = run_phase("5", phase_main_launches, main_path.recorded, card, "slab", "5")
     k3 = run_phase("5b", phase_main_launches, k3_recorded, card, "resident", "5b")
-    above = sum(1 for args, _, _ in main_path.recorded if args[3].shape[2] > 4096)
-    say(f"[5] K1 launches above the 4096-wide rung in phase 4's run: {above} of "
-        f"{main_path.launches}")
+    from sift4g_tpu_torch.align.batch import LONG_RUNG, _long_route
+
+    above = [args for args, _, _ in main_path.recorded if args[3].shape[2] >= LONG_RUNG]
+    for args in above:
+        groups = zip(args[2].tolist(), args[4].cpu().numpy())
+        check(not _long_route(groups), f"K1 launched at rung {args[3].shape[2]}, where the "
+                                       f"route gives the launch to K2")
+    say(f"[5] K1 launches at rungs >= LONG_RUNG ({LONG_RUNG}) in phase 4's run: {len(above)} of "
+        f"{main_path.launches}, each one the route gives K1; K2 launches there: "
+        f"{main_path.long_launches}")
     k5 = run_phase("6", phase_dp_row, dev, card, k1_gcups)
     k6 = run_phase("7", phase_int32, dev, card)
     bench = run_phase("8", phase_bench, card, k1_gcups)
@@ -2305,11 +2660,14 @@ def main(argv=None) -> int:
     k5["launches"] = bench["launches"]["dp_row_probe"]
     for row in long_rungs:
         bound_ms, bound_by = _bound(*row["work"])
-        say(f"[3b] {row['name']} B={row['B']} N={row['N']}, {card}: K1 {row['ms']:.3f} ms, "
-            f"plain {row['plain_ms']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); design "
-            f"bound ({tiled_bytes_per_cell(row['T']):.4f} B/cell at T={row['T']})")
+        say(f"[3b] {row['name']} B={row['B']} N={row['N']}, {card}: K2 {row['ms']:.3f} ms "
+            f"({100 * bound_ms / row['ms']:.1f} % of its bound), K1 {row['k1_ms']:.3f} ms, plain "
+            f"{row['plain_ms']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); design bound "
+            f"(the target's byte a column and the output) "
+            f"{row['work'][0] / HBM_BYTES_PER_S * 1e3:.4f} ms")
     kernels = []
-    for meta, k, launches in ((K1, k1, main_path.launches), (K3, k3, k3_launches),
+    for meta, k, launches in ((K1, k1, main_path.launches), (K2, k2, k2["launches"]),
+                              (K3, k3, k3_launches),
                               (K4, k4, k4["launches"]), (K5, k5, k5["launches"]),
                               (K6, k6, k6["launches"]), (K1_I16, k1_i16, k1_i16["launches"]),
                               (K1_F32, k1_f32, k1_f32["launches"])):

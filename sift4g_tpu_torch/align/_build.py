@@ -106,6 +106,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32, i32,                 # threads per target, block
         vp, vp, vp,               # scratch, out, stream
     ]
+    lib.sift4g_sw_grouped_long.restype = i32
+    lib.sift4g_sw_grouped_long.argtypes = [
+        vp, i32, vp, vp,          # q_all, qm, q_off, q_len
+        vp, vp, vp,               # targets, lens, matrix32
+        i32, i32, i32,            # G, B, N
+        i32, i32, i32,            # mode, go, ge
+        i32,                      # warps a target
+        vp, vp, vp,               # scratch, out, stream
+    ]
+    lib.sift4g_sw_long_scratch_bytes.restype = ctypes.c_longlong
+    lib.sift4g_sw_long_scratch_bytes.argtypes = [i32, i32, i32, i32]   # G, B, N, warps
     lib.sift4g_dp_row_probe.restype = i32
     lib.sift4g_dp_row_probe.argtypes = [
         i32, i32, i32, i32,       # B, N, M, salt

@@ -8,32 +8,44 @@ rungs, target slabs are filled by the native ``sift4g_pack_group``, and
 ``scores_many_async`` dispatches everything at once and fetches the
 results in ONE device-to-host copy when its closure runs.
 
-With a resident database (``align/resident.py``) a launch whose every
-group holds ``PackedTargets`` over ``resident.host_slotted`` ships only
-(G, B) int64 starts and int32 lengths and runs the resident kernel K3;
-any other launch packs a slab for K1.  Buckets need no segment key: the
-resident tensor is one, and the groups' rows stay ascending in database
-id as the screen's tie order needs.
+A launch at a rung of ``LONG_RUNG`` or more runs the long-target kernel
+K2 (``sw_scores_grouped_long``), as the JAX package sends every rung past
+its planes budget (``sift4g_tpu/align/batch.py:854``) to its long-target
+kernel, unless it holds so many cells that K1 would finish first
+(``_long_route``); every other launch runs K1 (or K3, below).  Unlike
+the JAX package, which launches its long rungs one query at a time, the
+port keeps them grouped across queries, in ascending row order and
+screened, like every other launch.
+
+With a resident database (``align/resident.py``) a launch not sent to
+K2 whose every group holds ``PackedTargets`` over
+``resident.host_slotted`` ships only (G, B) int64 starts and int32
+lengths and runs the resident kernel K3; any other launch packs a slab,
+K2's too (the JAX package packs its resident long rungs from the host as
+well).  Buckets need no segment key: the resident tensor is one,
+and the groups' rows stay ascending in database id as the screen's tie
+order needs.
 
 Over several devices (a list, as ``parallel/sharded.py`` takes a mesh)
 one logical launch is split across them: on the group axis
 (``make_grouped_sharded``, ``make_grouped_resident_sharded``), or, when
 the launch has fewer groups than devices, on the batch axis, every device
-scoring all groups on its share of the rows (``make_grouped_long_sharded``,
-the JAX package's long-target rule; such launches are not screened,
-since a group's rows are spread over devices).  The host packs each
-device's share into its own segment of the launch's one pinned buffer,
-each segment goes to its device in one copy, and the fetch makes one
-device-to-host copy per device.  ``launches`` counts a logical launch
-once, however many devices it spans.
+scoring all groups on its share of the rows
+(``make_grouped_long_sharded``, the JAX package's long-target rule,
+with K2 or K1 as above; such launches are not screened, since a group's
+rows are spread over devices).  The host packs each device's share into
+its own segment of the launch's one pinned buffer, each segment goes to
+its device in one copy, and the fetch makes one device-to-host copy per
+device.  ``launches`` counts a logical launch once, however many devices
+it spans.
 
 What differs is what the TPU constrained.  A launch costs microseconds
 here, not the tens of milliseconds of the TPU runtime, and the kernel
 keeps its DP state in device memory rather than VMEM, so:
 
-* every rung goes through the one grouped kernel: the kernel's scratch
-  grows with the rung, never with the query, so there is no long-target
-  route and no query-length fallback;
+* no kernel's memory grows with the query (K1's scratch grows with the
+  rung, K2's with nothing but its strips), so there is no query-length
+  fallback and no batch width shrunk for long queries;
 * the batch width is the screen's 4096-row limit, cut only where one
   group's scratch would pass the launch budget;
 * a launch holds as many groups of a bucket as the scratch budget allows
@@ -81,6 +93,39 @@ MAX_BATCH = SCREEN_ROW_MASK + 1
 SCRATCH_BYTES = {"cuda": 2 << 30, "cpu": 128 << 20}
 MAX_GROUPS = 65535    # CUDA grid y-dimension limit
 T_BUCKET = 128        # base of the padded-length rung ladder
+# the smallest rung scored by K2: the JAX package leaves its grouped
+# kernel for the long-target one past 14 MiB of planes at B = 256
+# (26 * n_pad * 256 bytes), from the 3072 rung on
+LONG_RUNG = 3072
+# which of K1 and K2 scores a launch at a long rung (``_long_route``): K1
+# gives a target one warp, so a launch takes it about its longest target's
+# columns for each pass over the query (K1_PASS_ROWS rows), however many
+# targets it holds; K2 spreads a target over many warps and takes about
+# the launch's cells at its full-card rate.  The constant is that rate
+# times K1's time a column and pass, both from ``chip_smoke.py`` phase 3b
+# on an H100 at 360 query rows (0.85-1.13 T cells/s on 4,096 full
+# targets, 0.25-0.26 us at 64-256 targets): 2.1e5-2.9e5 cells
+LONG_CELLS_PER_COLUMN = 1 << 18
+K1_PASS_ROWS = 16 * 32    # TILE_ROWS x one warp a target
+
+
+def _long_route(groups) -> bool:
+    """True when K2 should score a launch at a long rung, given its
+    groups as (query length, target lengths): its cells stay under
+    ``LONG_CELLS_PER_COLUMN`` for each column and pass of K1's longest
+    chain (its longest target times its passes over the query)."""
+    cells = chain = 0
+    for m, lens in groups:
+        if len(lens):
+            cells += m * int(np.sum(lens, dtype=np.int64))
+            chain = max(chain, -(-m // K1_PASS_ROWS) * int(np.max(lens)))
+    return cells < LONG_CELLS_PER_COLUMN * chain
+
+
+def _target_lens(targets, idx) -> np.ndarray:
+    if isinstance(targets, PackedTargets):
+        return targets.lens[idx]
+    return np.array([targets[i].shape[0] for i in idx], dtype=np.int64)
 
 
 def _split(n: int, parts: int):
@@ -343,7 +388,9 @@ class BatchAligner:
         buffers, held by the shards, must live until the fetch: the copies
         from them are asynchronous."""
         G = len(part)
-        resident = self._part_resident(items, part)
+        on_k2 = n_pad >= LONG_RUNG and _long_route(
+            (items[i][0].shape[0], _target_lens(items[i][1], idx)) for i, idx in part)
+        resident = not on_k2 and self._part_resident(items, part)
         plan = self._plan(G, B)
         batch_split = G < len(self.devices)
         k_eff = min(B, scr_k) if smins is not None and not batch_split else 0
@@ -424,14 +471,17 @@ class BatchAligner:
         gaps = dict(mode=self.mode, gap_open=self.scorer.gap_open,
                     gap_extend=self.scorer.gap_extend)
         screen = (sm_l,) if k_eff else ()
+        scorer = "long" if on_k2 else "grouped"
         if resident:
             fn = make_grouped_resident_sharded(mesh, n_pad=n_pad, screen_k=k_eff, **gaps)
             dbs = [self.resident.on(d) for d in mesh]
             results = fn(q_l, go_l, gl_l, dbs, tg_l, tl_l, m32, *screen)
         elif batch_split:
-            results = make_grouped_long_sharded(mesh, **gaps)(q_l, go_l, gl_l, tg_l, tl_l, m32)
+            # K2 needs no query bound
+            fn = make_grouped_long_sharded(mesh, scorer=scorer, m_cap=None, **gaps)
+            results = fn(q_l, go_l, gl_l, tg_l, tl_l, m32)
         else:
-            fn = make_grouped_sharded(mesh, screen_k=k_eff, **gaps)
+            fn = make_grouped_sharded(mesh, screen_k=k_eff, scorer=scorer, **gaps)
             results = fn(q_l, go_l, gl_l, tg_l, tl_l, m32, *screen)
         for sh, res in zip(shards, results):
             sh.result = res

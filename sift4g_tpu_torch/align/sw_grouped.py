@@ -3,13 +3,15 @@
 ``sw_scores_grouped`` (K1) takes the layout of
 ``sift4g_tpu/align/pallas_sw.py:sw_scores_pallas_grouped``,
 ``sw_scores_grouped_resident`` (K3) that of
-``sw_scores_pallas_grouped_resident``, with int64 starts, and
-``sw_scores_single`` (K4) that of ``sw_scores_pallas``.  All dispatch on
-the device of their tensors: CPU tensors go to the plain PyTorch versions
-(``align/scan.py``), CUDA tensors to the kernels in
-``csrc/sw_grouped.cu``, ``csrc/sw_grouped_resident.cu`` and
-``csrc/sw_single.cu``, built on first use.  A CUDA call launches the
-kernel or raises; there is no fallback to the plain version.
+``sw_scores_pallas_grouped_resident``, with int64 starts,
+``sw_scores_grouped_long`` (K2) that of ``sw_scores_pallas_grouped_long``
+and ``sw_scores_single`` (K4) that of ``sw_scores_pallas``.  All dispatch
+on the device of their tensors: CPU tensors go to the plain PyTorch
+versions (``align/scan.py``), CUDA tensors to the kernels in
+``csrc/sw_grouped.cu``, ``csrc/sw_grouped_resident.cu``,
+``csrc/sw_grouped_long.cu`` and ``csrc/sw_single.cu``, built on first
+use.  A CUDA call launches the kernel or raises; there is no fallback to
+the plain version.
 
 K1, K3 and K4 run the tiled body of ``csrc/sw_tiled.cuh``: T threads
 score one target, each holding ``TILE_ROWS`` query rows.  K1 takes the
@@ -21,10 +23,16 @@ T threads score a pair of targets in int16 halves, only where
 card's SM count (K4's launch is one group, G = 1); ``threads_per_target=``
 forces T (tests and ``chip_smoke.py`` run every value).
 
+K2 runs its own body: a target's columns in strips of ``LONG_STRIP``
+columns over up to ``MAX_LONG_WARPS`` warps of one block, the query rows
+streamed through them (``csrc/sw_grouped_long.cu``); ``long_geometry``
+picks the warps, ``warps_per_target=`` forces them.
+
 Counters (plain integers a run reads to show which path it took):
 ``kernel_launches`` counts K1 launches made here on int32,
 ``i16_launches`` and ``f32_launches`` K1's other accumulators,
-``resident_launches`` K3 launches, ``single_launches`` K4 launches, and
+``resident_launches`` K3 launches, ``long_launches`` K2 launches,
+``single_launches`` K4 launches, and
 ``twin_calls_on_cuda`` calls of the plain versions on CUDA tensors (only
 a comparison against a kernel makes those).
 """
@@ -52,21 +60,28 @@ MIN_GROUP_THREADS = 8
 WARPS_PER_SM = 16
 MAX_BLOCK = 128
 
+# K2: columns a warp (16 a lane) and the most warps a block holds
+# (kStrip and kMaxWarps of csrc/sw_grouped_long.cu)
+LONG_STRIP = 512
+MAX_LONG_WARPS = 16
+
 kernel_launches = 0
 i16_launches = 0
 f32_launches = 0
 resident_launches = 0
+long_launches = 0
 single_launches = 0
 twin_calls_on_cuda = 0
 
 
 def reset_counters() -> None:
     global kernel_launches, i16_launches, f32_launches, resident_launches, single_launches
-    global twin_calls_on_cuda
+    global long_launches, twin_calls_on_cuda
     kernel_launches = 0
     i16_launches = 0
     f32_launches = 0
     resident_launches = 0
+    long_launches = 0
     single_launches = 0
     twin_calls_on_cuda = 0
 
@@ -283,6 +298,111 @@ def sw_scores_grouped_resident(
         raise RuntimeError(f"sw_grouped_resident kernel launch failed: CUDA error {rc}")
     global resident_launches
     resident_launches += 1
+    return out
+
+
+def long_geometry(G: int, B: int, N: int, warps_per_target=None):
+    """(strips, warps, blocks) of a K2 launch of G groups of B targets on
+    an N-wide rung: the strips of ``LONG_STRIP`` columns that cover N, the
+    warps of a block (one block a target), and the blocks.
+
+    A block takes one warp a strip, at most ``MAX_LONG_WARPS`` (their
+    profiles fill the SM's shared memory); a wider target runs its strips
+    in turn.  On an H100 that was the best split, or within 3 % of it, on
+    every K2 launch of the long-tail run and at B = 32, N = 35,008; a
+    launch of B full targets at B = 256, N = 8,192 ran best at 4 warps
+    (0.76 against 0.86 ms), one at B = 4,096, N = 3,072 at 2 (3.40 against
+    4.19 ms) (``chip_smoke.py`` phases 3b and 4c print every split).
+    ``warps_per_target`` forces the warps (1 to ``MAX_LONG_WARPS``)."""
+    strips = -(-N // LONG_STRIP)
+    if warps_per_target is None:
+        warps = max(1, min(strips, MAX_LONG_WARPS))
+    else:
+        if isinstance(warps_per_target, bool) or warps_per_target not in range(
+                1, MAX_LONG_WARPS + 1):
+            raise ValueError(f"warps_per_target must be 1 to {MAX_LONG_WARPS}, got "
+                             f"{warps_per_target!r}")
+        warps = int(warps_per_target)
+    return strips, warps, G * B
+
+
+def sw_scores_grouped_long(
+    q_codes_all: torch.Tensor,   # (Qm,) int32 concatenated queries
+    q_offsets: torch.Tensor,     # (G,) int32
+    q_lens: torch.Tensor,        # (G,) int32, each <= m_cap
+    targets: torch.Tensor,       # (G, B, N) int8 codes, N a multiple of n_chunk
+    target_lens: torch.Tensor,   # (G, B) int32, each <= N
+    matrix32: torch.Tensor,      # (32, 32) int32
+    *,
+    mode: str = "SW",
+    gap_open: int = 10,
+    gap_extend: int = 1,
+    n_chunk: int = 512,
+    m_cap: int | None = 2048,
+    warps_per_target: int | None = None,
+) -> torch.Tensor:
+    """K2, the long-target scorer: scores (G, B) int32 of group g's query
+    against its B targets, the function of ``sw_scores_grouped`` (and of
+    ``sift4g_tpu/align/pallas_sw.py:sw_scores_pallas_grouped_long``).
+    Its plain version is ``scan.align_scores_grouped``.
+
+    The JAX wrapper's contract holds: N a multiple of ``n_chunk`` and
+    every query at most ``m_cap`` rows; both size nothing in the kernel.
+    An unknown mode or an N off the chunk grid raise before any work, and
+    so does a query past ``m_cap`` where the lengths lie on the host (CPU
+    tensors).  Lengths on the card are not checked against ``m_cap``: the
+    kernel needs no bound, and a check there would cost a host sync or a
+    device assertion that ends the process's CUDA context.  ``m_cap=None``
+    (the port's callers, which hold no bound) checks nothing.
+    ``warps_per_target`` forces the kernel's warps (:func:`long_geometry`);
+    the plain version ignores it."""
+    if mode not in MODE_IDS:
+        raise ValueError(f"unknown alignment mode {mode!r}")
+    G, B, N = targets.shape
+    if n_chunk <= 0 or N % n_chunk:
+        raise ValueError(f"N = {N} must be a multiple of n_chunk = {n_chunk}")
+    _, warps, _ = long_geometry(G, B, N, warps_per_target)
+    dev = targets.device
+    if dev.type == "cpu":
+        if m_cap is not None and G and int(q_lens.max()) > m_cap:
+            raise ValueError(f"a query of {int(q_lens.max())} rows exceeds m_cap = {m_cap}")
+        return scan.align_scores_grouped(
+            q_codes_all, q_offsets, q_lens, targets, target_lens, matrix32,
+            mode=mode, gap_open=gap_open, gap_extend=gap_extend,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"sw_scores_grouped_long runs on cpu or cuda, not {dev}")
+    _check("q_codes_all", q_codes_all, torch.int32, (q_codes_all.numel(),), dev)
+    _check("q_offsets", q_offsets, torch.int32, (G,), dev)
+    _check("q_lens", q_lens, torch.int32, (G,), dev)
+    _check("targets", targets, torch.int8, (G, B, N), dev)
+    _check("target_lens", target_lens, torch.int32, (G, B), dev)
+    _check("matrix32", matrix32, torch.int32, (32, 32), dev)
+    if N % 16 or targets.data_ptr() % 16:
+        raise ValueError("targets rows must be 16-byte multiples on a 16-byte aligned base")
+    if G > 65535:
+        raise ValueError(f"{G} groups exceed the launch grid (65535)")
+    if gap_open < 0 or gap_extend < 0:
+        raise ValueError("gap penalties must be >= 0")
+
+    lib = _build.load()
+    out = torch.empty((G, B), dtype=torch.int32, device=dev)
+    # with strips in turn: each strip's bottom (H, F) row between row tiles
+    nbytes = lib.sift4g_sw_long_scratch_bytes(G, B, N, warps)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sift4g_sw_grouped_long(
+            q_codes_all.data_ptr(), q_codes_all.shape[0],
+            q_offsets.data_ptr(), q_lens.data_ptr(),
+            targets.data_ptr(), target_lens.data_ptr(), matrix32.data_ptr(),
+            G, B, N, MODE_IDS[mode], int(gap_open), int(gap_extend), warps,
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"sw_grouped_long kernel launch failed: CUDA error {rc}")
+    global long_launches
+    long_launches += 1
     return out
 
 

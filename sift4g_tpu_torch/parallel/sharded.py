@@ -26,9 +26,11 @@ which run their plain PyTorch versions only on CPU tensors; ``"torch"``
 calls the plain versions by name.  The local scorer is K4
 (``sw_scores_single``) wherever the JAX step scores one query against a
 shard (``make_sharded_scores``, ``make_sharded_topk_align``,
-``make_sharded_pipeline_step``), K1 in the grouped and long-target
-factories, and K3 in the resident one.  The scorers are looked up at each
-call, so a caller may wrap them to record the launches.
+``make_sharded_pipeline_step``), K1 in the grouped factory (K2 there with
+``scorer="long"``), K2 (``sw_scores_grouped_long``) in the long-target
+factory (K1 there with ``scorer="grouped"``), and K3 in the resident
+one.  The scorers are looked up at each call, so a caller may wrap them
+to record the launches.
 
 The per-shard top-k is a stable descending sort: among equal scores the
 lower index comes first, as in ``jax.lax.top_k``, so the merged indices
@@ -52,6 +54,7 @@ _SCORERS = {
     "grouped": (sw_grouped, "sw_scores_grouped", scan, "align_scores_grouped"),
     "resident": (sw_grouped, "sw_scores_grouped_resident", scan,
                  "align_scores_grouped_resident"),
+    "long": (sw_grouped, "sw_scores_grouped_long", scan, "align_scores_grouped"),
 }
 
 
@@ -259,6 +262,7 @@ def make_grouped_sharded(
     axis: str = DB_AXIS,
     kernel: str = "cuda",
     screen_k: int = 0,
+    scorer: str = "grouped",
 ):
     """The grouped scorer (K1) sharded over the GROUP axis: each device
     scores its complete (query, target-chunk) groups.  ``acc`` picks K1's
@@ -266,6 +270,10 @@ def make_grouped_sharded(
     (``scan.accumulator``): an unknown accumulator, or an ``"i16"`` bound
     that no width admits, is refused here; one that the targets' width N
     breaks, when the function is called, before any shard is placed.
+
+    ``scorer="long"`` (the port's own keyword) scores with K2, the
+    long-target kernel, on int32 accumulators, N a multiple of 512 and no
+    bound on the queries: the aligner's long rungs grouped across queries.
 
     fn(q_codes_all (Qm,) i32 replicated, q_offsets (G,) i32 sharded,
        q_lens (G,) i32 sharded, targets (G, B, N) i8 sharded on axis 0,
@@ -275,11 +283,19 @@ def make_grouped_sharded(
 
     ``screen_k`` > 0 screens each shard's scores on its device
     (``align/scan.screen_topk_words``)."""
-    score = _scorer(kernel, "grouped")
+    if scorer not in ("grouped", "long"):
+        raise ValueError(f"scorer must be 'grouped' or 'long', got {scorer!r}")
+    score = _scorer(kernel, scorer)
     i32 = torch.int32
     # at width 0 the bound is the weakest it can be: what fails here fails at every width
     scan.accumulator(acc, max_qlen, max_sub, gap_open, gap_extend, 0)
-    bounds = dict(max_qlen=max_qlen, max_sub=max_sub, acc=acc)
+    if scorer == "long":
+        if acc != "int":
+            raise ValueError("the long-target scorer runs int32 accumulators only")
+        # K2 needs no query bound; the plain version takes none
+        bounds = dict(m_cap=None) if kernel == "cuda" else {}
+    else:
+        bounds = dict(max_qlen=max_qlen, max_sub=max_sub, acc=acc)
 
     def fn(q_all, q_offsets, q_lens, targets, target_lens, matrix32, *smin):
         if len(smin) != (1 if screen_k else 0):
@@ -308,20 +324,30 @@ def make_grouped_long_sharded(
     gap_open: int = 10,
     gap_extend: int = 1,
     n_chunk: int = 512,
-    m_cap: int = 2048,
+    m_cap: int | None = 2048,
     axis: str = DB_AXIS,
     kernel: str = "cuda",
+    scorer: str = "long",
 ):
     """Long-target launches sharded over the BATCH axis (they carry one
     group, so the group axis cannot be split; rows are independent DP
-    problems).  K1 serves the TPU's column-chunked kernel K2: it has no
-    width ceiling, so ``n_chunk`` and ``m_cap`` are accepted and unused.
+    problems).  Each shard is scored by K2 (``sw_scores_grouped_long``),
+    which holds the JAX contract: N a multiple of ``n_chunk``, queries of
+    at most ``m_cap`` rows (``m_cap=None``: no bound).
+
+    ``scorer="grouped"`` (the port's own keyword) scores each shard with
+    K1 instead, and ``n_chunk`` and ``m_cap``, K2's contract, do not
+    apply: the aligner's batch-split launches that K2 does not take.
 
     fn(q (Qm,) i32, go (G,) i32, gl (G,) i32 replicated,
        targets (G, B, N) i8 sharded on axis 1, target_lens (G, B) i32
        sharded on axis 1, matrix32) -> scores (G, B) i32 sharded on axis 1"""
-    score = _scorer(kernel, "grouped")
+    if scorer not in ("grouped", "long"):
+        raise ValueError(f"scorer must be 'grouped' or 'long', got {scorer!r}")
+    score = _scorer(kernel, scorer)
     i32 = torch.int32
+    # neither K1 nor the plain version takes them
+    chunks = dict(n_chunk=n_chunk, m_cap=m_cap) if kernel == "cuda" and scorer == "long" else {}
 
     def fn(q, go, gl, targets, target_lens, matrix32):
         qs, ms = _replicated(mesh, q, i32), _replicated(mesh, matrix32, i32)
@@ -330,7 +356,7 @@ def make_grouped_long_sharded(
         tl = _sharded(mesh, target_lens, 1, i32)
         return [
             score(qs[i], gos[i], gls[i], tg[i], tl[i], ms[i],
-                  mode=mode, gap_open=gap_open, gap_extend=gap_extend)
+                  mode=mode, gap_open=gap_open, gap_extend=gap_extend, **chunks)
             for i in range(len(mesh))
         ]
 

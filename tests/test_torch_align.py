@@ -100,8 +100,9 @@ def test_twin_matches_xla_and_numpy(mode, gaps):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_twin_matches_pallas_long_interpret(mode):
-    """The long-target route (K2) is served by the grouped scorer in the
-    port; hold the twin to K2 at tests/test_pallas_long.py's shapes."""
+    """The plain grouped scorer is K2's plain version too
+    (``sw_scores_grouped_long`` on CPU tensors); hold it to K2 at
+    tests/test_pallas_long.py's shapes."""
     from sift4g_tpu.align.pallas_sw import sw_scores_pallas_grouped_long
 
     rng = np.random.default_rng(29)

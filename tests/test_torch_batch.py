@@ -149,9 +149,11 @@ def test_tail_coalescing_merges_rungs():
 
 @pytest.mark.parametrize("mode", ["SW", "OV"])
 def test_rung_past_old_planes_cutoff_uses_grouped_scorer(mode):
-    """Targets past the JAX package's 14 MiB planes cutoff (rung 3072) went
-    to its long-target route; the port scores every rung in the grouped
-    scorer.  Held to the JAX xla backend, which scans those targets."""
+    """Targets past the JAX package's 14 MiB planes cutoff (rung 3072) go
+    to its long-target route, and in the port to K2 (its plain version
+    here: the grouped scorer's), one launch with the short target its
+    tail took along.  Held to the JAX xla backend, which scans those
+    targets."""
     rng = np.random.default_rng(3)
     q = rng.integers(0, 26, 70).astype(np.uint8)
     targets = [

@@ -1,10 +1,11 @@
 """The CUDA kernels (K1 on slabs, with its int32, int16 and float32
-accumulators, K3 on the resident database, K4 on int32 rows, the probes
-K5 and K6) against their plain PyTorch versions,
+accumulators, K2 on long targets, K3 on the resident database, K4 on
+int32 rows, the probes K5 and K6) against their plain PyTorch versions,
 and the sharded factories on two shards of the card, on the card.  K1, K3
 and K4 run at every forced ``threads_per_target`` of the tiled body, at
 the query lengths where its passes change and the target lengths where
-its column loads change.
+its column loads change; K2 at every split of its strips over warps, at
+the lengths where its strips, lanes and row tiles change.
 
 These tests need a CUDA device and skip without one.  They import no JAX,
 so they run on a GPU host that has none:
@@ -397,6 +398,113 @@ def test_sharded_factories_on_two_shards_of_the_card(cuda, screen_k):
     got = sharded.make_sharded_scores(mesh)(q, torch.tensor(300, dtype=torch.int32), t, tl, m32)
     assert sw_grouped.single_launches == 2 and sw_grouped.twin_calls_on_cuda == 0
     assert torch.equal(torch.cat(got), want)
+
+
+# K2's edges: target lengths on lane (16), strip (512) and N edges, 0 and
+# 1; query lengths around the 32-lane wavefront and the 512-row tiles of
+# strips in turn; N a whole number of strips and one that cuts the last
+LONG_EDGE_QLENS = (0, 1, 31, 32, 33, 511, 512, 513, 1025)
+LONG_EDGE_TLENS = (0, 1, 15, 16, 17, 511, 512, 513, 1023, 1024, 1025)
+
+
+def _long_edge_inputs(seed, N, dev, qlens=LONG_EDGE_QLENS, B=16):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, N + 1, (len(qlens), B))
+    lens[:, : len(LONG_EDGE_TLENS)] = LONG_EDGE_TLENS
+    lens[:, -2:] = (N - 1, N)
+    return _inputs_with_lens(rng, qlens, lens, N, dev)
+
+
+def _inputs_with_lens(rng, qlens, lens, N, dev):
+    G, B = lens.shape
+    qlens = np.asarray(qlens, dtype=np.int32)
+    offs = np.concatenate(([0], np.cumsum(qlens)[:-1])).astype(np.int32)
+    q_all = np.full(int(qlens.sum()) + 1, 31, dtype=np.int32)
+    q_all[: qlens.sum()] = rng.integers(0, 26, int(qlens.sum()))
+    targets = rng.integers(-128, 128, (G, B, N)).astype(np.int8)
+    for g in range(G):
+        for b in range(B):
+            targets[g, b, : lens[g, b]] = rng.integers(0, 26, lens[g, b])
+    return [torch.from_numpy(a).to(dev) for a in (q_all, offs, qlens, targets,
+                                                  lens.astype(np.int32))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [2560, 2336])
+@pytest.mark.parametrize("mode", MODES)
+def test_long_kernel_at_every_warp_split_and_edge(cuda, mode, N):
+    """K2 == plain at every split of N's strips over warps (one warp a
+    strip, fewer warps taking strips in turn, idle warps), gaps with
+    go < ge among them."""
+    strips = -(-N // sw_grouped.LONG_STRIP)
+    args = _long_edge_inputs(N, N, cuda)
+    for go, ge in ((10, 1), (11, 2), (1, 3)):
+        m32 = scan.matrix32_from_scorer(_blosum62(), cuda)
+        ref = scan.align_scores_grouped(*args, m32, mode=mode, gap_open=go, gap_extend=ge)
+        for warps in (None, *range(1, strips + 1), sw_grouped.MAX_LONG_WARPS):
+            sw_grouped.reset_counters()
+            got = sw_grouped.sw_scores_grouped_long(
+                *args, m32, mode=mode, gap_open=go, gap_extend=ge, n_chunk=16, m_cap=1025,
+                warps_per_target=warps)
+            torch.cuda.synchronize()
+            assert sw_grouped.long_launches == 1
+            assert torch.equal(got, ref), f"gaps {go}/{ge} warps={warps}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+def test_long_kernel_with_an_8192_row_query(cuda, mode):
+    """Sixteen row tiles when a warp takes both strips in turn."""
+    rng = np.random.default_rng(5)
+    lens = rng.integers(900, 1025, (1, 8))
+    args = _inputs_with_lens(rng, (8192,), lens, 1024, cuda)
+    m32 = scan.matrix32_from_scorer(_blosum62(), cuda)
+    ref = scan.align_scores_grouped(*args, m32, mode=mode)
+    for warps in (None, 1):
+        got = sw_grouped.sw_scores_grouped_long(*args, m32, mode=mode, m_cap=8192,
+                                                warps_per_target=warps)
+        assert torch.equal(got, ref), f"warps={warps}"
+
+
+@pytest.mark.gpu
+def test_long_factory_on_two_shards_of_the_card(cuda):
+    """make_grouped_long_sharded on [cuda, cuda]: K2 on each shard, equal
+    to the unsharded kernel."""
+    from sift4g_tpu_torch.parallel import sharded
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(8)
+    args = _inputs_with_lens(rng, (360,), rng.integers(3000, 8193, (1, 64)), 8192, dev)
+    m32 = scan.matrix32_from_scorer(_blosum62(), dev)
+    want = sw_grouped.sw_scores_grouped_long(*args, m32)
+    sw_grouped.reset_counters()
+    got = sharded.make_grouped_long_sharded([dev, dev])(*args, m32)
+    assert sw_grouped.long_launches == 2 and sw_grouped.kernel_launches == 0
+    assert sw_grouped.twin_calls_on_cuda == 0
+    assert torch.equal(torch.cat(got, dim=1), want)
+
+
+@pytest.mark.gpu
+def test_long_kernel_refuses_what_it_does_not_take(cuda):
+    args = _long_edge_inputs(1, 2560, cuda, qlens=(40,))
+    m32 = scan.matrix32_from_scorer(_blosum62(), cuda)
+    with pytest.raises(ValueError):
+        sw_grouped.sw_scores_grouped_long(*args, m32, n_chunk=96)
+    with pytest.raises(ValueError):   # rows of 2,552 bytes: not 16-byte multiples
+        sw_grouped.sw_scores_grouped_long(*args[:3], args[3][..., :2552].contiguous(),
+                                          args[4], m32, n_chunk=8)
+    with pytest.raises(ValueError):
+        sw_grouped.sw_scores_grouped_long(*args, m32, warps_per_target=0)
+
+
+@pytest.mark.gpu
+def test_long_kernel_leaves_lengths_on_the_card_unchecked(cuda):
+    """A query past ``m_cap`` on the card: no host sync and no device
+    assertion, and the scores are still right (the kernel needs no bound)."""
+    args = _long_edge_inputs(1, 2560, cuda, qlens=(40,))
+    m32 = scan.matrix32_from_scorer(_blosum62(), cuda)
+    got = sw_grouped.sw_scores_grouped_long(*args, m32, m_cap=8)
+    assert torch.equal(got, scan.align_scores_grouped(*args, m32))
 
 
 def _predict_chunk(seed, nq):

@@ -217,7 +217,7 @@ def test_grouped_sharded_matches_jax_xla(mode, screen_k, eight):
 
 
 def test_grouped_long_sharded_matches_jax_pallas(eight):
-    """``make_grouped_long_sharded`` (K1 serving K2) against the JAX
+    """``make_grouped_long_sharded`` (K2 on every shard) against the JAX
     factory's column-chunked Pallas kernel in interpret mode, as
     tests/test_parallel_pallas.py runs it: one group, rows sharded."""
     rng = np.random.default_rng(1)
