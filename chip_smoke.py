@@ -6,12 +6,14 @@
 ``--parent DIR`` (DIR: another checkout of the port, such as the parent
 commit unpacked with ``git archive``) also imports DIR's package under a
 name of its own, builds DIR's kernels through DIR's own wrappers and
-times its K1, K3, K4 and K5 beside this checkout's, in turns (parent,
-this, this, parent) on the same inputs, in phases 3, 3b (the parent's K1
-against this K2), 5, 5b, 6 and 9b
-(and prints, in phase 1, which scorer kernels' and K6's SASS is the
-parent's): K1, K3, K4 and K5 must stay within 3 % of the parent's in
-phases 3, 5, 5b, 6 and 9b.
+times its K1, K2, K3, K4 and K5 beside this checkout's, in turns
+(parent, this, this, parent) on the same inputs, in phases 3, 3b (the
+parent's K2 against this K2 at K2's launch shapes, and this K2 at every
+split of its strips), 4c (each K2 launch of the long-tail run against
+the parent's K2), 5, 5b, 6 and 9b (and prints, in phase 1, which scorer
+kernels' and K6's SASS is the parent's): K1, K3, K4 and K5 must stay
+within 3 % of the parent's in phases 3, 5, 5b, 6 and 9b, and K2 no more
+than 3 % slower than the parent's in 3b and 4c.
 
 Phases, in order; the first failure ends the run with a non-zero exit:
 
@@ -49,10 +51,11 @@ Phases, in order; the first failure ends the run with a non-zero exit:
    segment) and a family of 1,500 long proteins holding the first query,
    the 50-query CLI run with ``--backend cuda`` byte-identical to
    ``--backend native``; K2's launches counted (more than 0), each held
-   to its plain version on its own inputs, and the largest launch of
-   each rung timed against K1 on the same inputs in turns; the family's
-   wide launch must go to K1, held to its plain version and timed against
-   K2; every launch's pick within 1.25x of the other kernel;
+   to its plain version on its own inputs and (under ``--parent``) timed
+   against the parent's K2 in turns, and the largest launch of each rung
+   timed against K1 on the same inputs in turns; the family's wide
+   launch must go to K1, held to its plain version and timed against K2;
+   every launch's pick within 1.25x of the other kernel;
 4b. the resident path: the same 50-query run with ``--resident-db on``,
    byte-identical to phase 4's ``--backend native`` outputs; then 300
    queries (the 50 and 250 database sequences, 20 substitutions each) at
@@ -69,20 +72,25 @@ Phases, in order; the first failure ends the run with a non-zero exit:
 5b. every K3 launch of phase 4b's cold default-flag run held the same
    way, and the largest timed, with K1 on the same windows as a slab;
 3b. (run after phase 3) K2, the long-target kernel (a target's strips of
-   512 columns over the warps of a block, query rows streamed through
-   them), against its plain version, exact, in all four modes: at its
-   edges (N of 5 whole strips and of 4.56; query lengths 0, 1, 31, 32,
-   33, 511, 512, 513 and 1,025; target lengths 0, 1, 15, 16, 17, 511,
-   512, 513, 1,023, 1,024, 1,025, N - 1 and N; gaps 10/1, 11/2 and 1/3)
-   at every split of the strips over warps, then at K2's launch shapes
-   (256 targets of 8,192 residues and 32 Titin-class targets of 35,008,
-   a 360-residue query each) at every split; timed there against its
-   plain version and this tree's K1 in turns (and, under --parent, the
-   parent's K1): K2 must beat all three; then the K1/K2 crossover, one
-   group of 64 to 4,096 full targets at each rung from 3,072 to 8,192
-   and queries of 360 and 1,500 rows, K2 equal to K1 on each and timed
-   against it in turns: the aligner's route (``batch._long_route``)
-   must pick the faster or one within 1.25x of it;
+   512 columns over the warps of a thread-block cluster, query rows
+   streamed through them), against its plain version, exact, in all four
+   modes: at its edges (N of 5 whole strips, of 4.56, of 8 and of 9;
+   query lengths 0, 1, 2, 31, 32, 33, 63, 64, 65, 511, 512, 513 and
+   1,025; target lengths 0, 1, 15, 16, 17, 511, 512, 513, 1,023, 1,024,
+   1,025, N - 1 and N; gaps 10/1, 11/2 and 1/3) at every split of the
+   strips over a cluster's blocks and warps (``long_splits``: one block
+   of 1 to 16 warps, clusters of 2 to 8 one-warp blocks, 16 one-warp
+   blocks, 8 blocks of 16 warps), then at K2's launch shapes (256
+   targets of 8,192 residues and 32 Titin-class targets of 35,008, a
+   360-residue query each, the Titin-class targets against a 1,500-residue
+   query, and one like 4c's largest K2 launch) at every split; timed there against its plain version and this tree's K1 in
+   turns and, under --parent, against the parent's K2 (every split
+   timed too): K2 must beat K1 and the plain version and stay within 3 %
+   of the parent's K2; then the K1/K2 crossover, one group of 64 to
+   4,096 full targets at each rung from 3,072 to 8,192 and queries of
+   360 and 1,500 rows, K2 equal to K1 on each and timed against it in
+   turns: the aligner's route (``batch._long_route``) must pick the
+   faster or one within 1.05x of it;
 6. K5, the row-engine probe (columns in registers, query rows streamed
    through a lane wavefront), against its plain version, exact: the JAX
    shape B=1024 N=512 at 300 rows and at the bench's 16,000
@@ -666,7 +674,8 @@ def load_parent(root):
     probes = importlib.import_module(f"{name}.align.roofline")
     build = importlib.import_module(f"{name}.align._build")
     build.load()
-    return SimpleNamespace(k1=sw.sw_scores_grouped, k3=sw.sw_scores_grouped_resident,
+    return SimpleNamespace(k1=sw.sw_scores_grouped, k2=sw.sw_scores_grouped_long,
+                           k3=sw.sw_scores_grouped_resident,
                            k4=sw.sw_scores_single, k5=probes.dp_row_probe,
                            library=build.library_path())
 
@@ -732,11 +741,13 @@ def phase_timing(dev, card):
 
 # K2's edges (tests/test_torch_gpu.py holds the same): target lengths on
 # lane (16), strip (512) and N edges, 0 and 1; query lengths around the
-# 32-lane wavefront and the 512-row tiles of strips in turn; N a whole
-# number of strips and one that cuts the last; gaps with go < ge
-LONG_EDGE_QLENS = (0, 1, 31, 32, 33, 511, 512, 513, 1025)
+# 32-lane wavefront (of row pairs: 64 rows), odd and even, and the 512-row
+# tiles of strips in turn; N a whole number of strips, one that cuts the
+# last, and 8 and 9 strips (a cluster's warps exactly, and one strip past
+# them: strips in turn); gaps with go < ge
+LONG_EDGE_QLENS = (0, 1, 2, 31, 32, 33, 63, 64, 65, 511, 512, 513, 1025)
 LONG_EDGE_TLENS = (0, 1, 15, 16, 17, 511, 512, 513, 1023, 1024, 1025)
-LONG_EDGE_N = (2560, 2336)
+LONG_EDGE_N = (2560, 2336, 4096, 4608)
 LONG_EDGE_GAPS = ((10, 1), (11, 2), (1, 3))
 # the K1/K2 crossover grid of phase 3b: the long rungs up to 8,192,
 # launches of 64 to 4,096 full targets (one group), a query of the CLI's
@@ -745,30 +756,117 @@ LONG_GRID_N = (3072, 4096, 6144, 8192)
 LONG_GRID_B = (64, 256, 1024, 4096)
 LONG_GRID_M = (360, 1500)
 # the aligner's pick between K1 and K2 may take this much longer than the
-# other kernel (near the crossover the two are within it of each other)
-ROUTE_SLACK = 1.25
+# other kernel: on the grid's full launches (near the crossover the two
+# are within it of each other), and on the long-tail run's launches, whose
+# mixed query and target lengths the route weighs more coarsely
+ROUTE_SLACK = 1.05
+TAIL_ROUTE_SLACK = 1.25
+# K2's launch shapes (phase 3b; name, G, B, N, query rows): 256 targets
+# of 8,192 residues, 32 Titin-class targets (and the same against a query
+# of three K1 passes, where a cluster's shorter steps count for more
+# rows), and one like phase 4c's largest K2 launch (11 groups of 256 slots
+# on the 24,576 rung, 387 targets of 2,049-24,576 residues, queries of
+# 180-330 residues)
+LONG_SHAPES = (("long-target", 1, 256, 8192, 360), ("Titin-class", 1, 32, 35008, 360),
+               ("Titin-class, 1,500 rows", 1, 32, 35008, 1500),
+               ("4c-like", 11, 256, 24576, None))
 
 
-def long_warps(N):
-    """Every split of N's strips over warps: the geometry's own (None),
-    1 to min(strips, 16), and 16 (idle warps where N has fewer strips)."""
+# the cluster against one block a target (phase 3b): launches of fewer
+# targets than SMs, of Titin-class targets and of the 16,384 and 24,576
+# rungs, where the geometry's cluster spans 2 to 8 blocks, against queries
+# from half the CLI's mean length to four K1 passes, around
+# LONG_CLUSTER_ROWS and the kernel's 512-row tiles
+CLUSTER_ROWS_N = (16384, 24576, 35008)
+CLUSTER_ROWS_B = (4, 16, 24, 32, 48)
+CLUSTER_ROWS_M = (180, 256, 360, 420, 512, 640, 768, 1024, 1500, 2048)
+# K2's keywords that only inform its geometry (the parent's K2 takes none)
+K2_HINTS = ("live_targets", "longest_query")
+
+
+def _geometry_of(sms, args, kw):
+    """K2's geometry on a recorded launch, from the hints it was given."""
+    from sift4g_tpu_torch.align import sw_grouped
+
+    G, B, N = args[3].shape
+    return sw_grouped.long_geometry(G, B, N, sms, targets=kw.get("live_targets"),
+                                    rows=kw.get("longest_query"))
+
+
+def _cluster_against_one_block(rng, m32, sms, dev, card):
+    """3b: at each launch and query length of the CLUSTER_ROWS grid, the
+    cluster K2's geometry spreads a target over against one block a
+    target, in turns, both equal; the geometry's pick (it reads the
+    longest query) must be the faster or within ROUTE_SLACK of it."""
+    import torch
+    from sift4g_tpu_torch.align import sw_grouped
+
+    points = []
+    for N in CLUSTER_ROWS_N:
+        for B in CLUSTER_ROWS_B:
+            _, w_cl, cl, _ = sw_grouped.long_geometry(1, B, N, sms, rows=1 << 30)
+            _, w_one, _, _ = sw_grouped.long_geometry(1, B, N, sms, rows=0)
+            for m in CLUSTER_ROWS_M:
+                args = grouped_inputs(rng, 1, B, N, (m,), dev, zero_len=False)
+
+                def one():
+                    return sw_grouped.sw_scores_grouped_long(*args, m32, n_chunk=64, m_cap=None,
+                                                             cluster=1, warps_per_block=w_one)
+
+                def many():
+                    return sw_grouped.sw_scores_grouped_long(*args, m32, n_chunk=64, m_cap=None,
+                                                             cluster=cl, warps_per_block=w_cl)
+
+                check(torch.equal(one(), many()), f"K2 on one block and on a cluster differ at "
+                                                  f"B={B} N={N} m={m}")
+                one_ms, cl_ms = _turns(one, many, 3)
+                picks_cl = sw_grouped.long_geometry(1, B, N, sms, rows=m)[2] > 1
+                points.append((N, B, m, one_ms, cl_ms, picks_cl))
+                say(f"[3b] cluster G=1 B={B} N={N} m={m} (full targets), {card}: one block of "
+                    f"{w_one} warps {one_ms:.3f} ms, a cluster of {cl} x {w_cl} warps "
+                    f"{cl_ms:.3f} ms in turns ({one_ms / cl_ms:.2f}x); the geometry picks "
+                    f"{'the cluster' if picks_cl else 'one block'}")
+                del args
+    for picks_cl in (True, False):
+        gains = [one_ms / cl_ms for _, _, _, one_ms, cl_ms, p in points if p == picks_cl]
+        say(f"[3b] cluster grid: the geometry picks {'the cluster' if picks_cl else 'one block'} "
+            f"at {len(gains)} of {len(points)} launches, where one block's time over the "
+            f"cluster's is {min(gains, default=0):.2f}-{max(gains, default=0):.2f}x")
+    for N, B, m, one_ms, cl_ms, picks_cl in points:
+        picked, other = (cl_ms, one_ms) if picks_cl else (one_ms, cl_ms)
+        check(picked <= ROUTE_SLACK * other,
+              f"the geometry's {'cluster' if picks_cl else 'one block'} at B={B} N={N} m={m} "
+              f"takes {picked:.3f} ms against {other:.3f} ms")
+
+
+def long_splits(N):
+    """(cluster, warps a block) of K2 at every split of N's strips: the
+    geometry's own, one block of 1 to min(strips, 16) warps and of 16
+    (idle warps), clusters of 2 to 8 one-warp blocks (every ring between
+    blocks; strips in turn past the cluster's warps), 2 blocks of 2 and 4
+    of 4 warps, and 8 blocks of 16 (idle blocks)."""
     from sift4g_tpu_torch.align import sw_grouped
 
     strips = -(-N // sw_grouped.LONG_STRIP)
     top = min(strips, sw_grouped.MAX_LONG_WARPS)
-    return (None, *range(1, top + 1), *((sw_grouped.MAX_LONG_WARPS,) if top < 16 else ()))
+    return ((None, None), *((1, w) for w in range(1, top + 1)),
+            *(((1, sw_grouped.MAX_LONG_WARPS),) if top < sw_grouped.MAX_LONG_WARPS else ()),
+            *((c, 1) for c in range(2, sw_grouped.MAX_LONG_CLUSTER + 1)),
+            (2, 2), (4, 4), (sw_grouped.MAX_LONG_CLUSTER, sw_grouped.MAX_LONG_WARPS))
 
 
-def _k2_against_plain(what, args, m32, ref, warps, **kw):
-    """K2 at each forced warps on ``args``, each launch equal to ``ref``."""
+def _k2_against_plain(what, args, m32, ref, splits, **kw):
+    """K2 at each forced (cluster, warps) on ``args``, each launch equal to
+    ``ref``."""
     import torch
     from sift4g_tpu_torch.align import sw_grouped
 
-    for w in warps:
-        got = sw_grouped.sw_scores_grouped_long(*args, m32, warps_per_target=w, **kw)
+    for cl, w in splits:
+        got = sw_grouped.sw_scores_grouped_long(*args, m32, cluster=cl, warps_per_block=w, **kw)
         torch.cuda.synchronize()
         err = int((got.long() - ref.long()).abs().max()) if ref.numel() else 0
-        check(err == 0, f"K2 {what}, warps={w}: differs from its plain version by {err}")
+        check(err == 0, f"K2 {what}, cluster={cl} warps={w}: differs from its plain version by "
+                        f"{err}")
 
 
 def _turns(a, b, iters):
@@ -779,11 +877,32 @@ def _turns(a, b, iters):
     return min(ta), min(tb)
 
 
+def _long_shape_inputs(rng, G, B, N, m, dev):
+    """K2's launch shapes: full targets and queries of m residues, or
+    (m None: the 4c-like shape) 387 ragged targets among G x B slots and
+    queries of 180-330 residues."""
+    import torch
+
+    if m is not None:
+        return grouped_inputs(rng, G, B, N, (m,) * G, dev, zero_len=False)
+    q_all, offs, qlens = query_inputs(rng, rng.integers(180, 331, G))
+    lens = np.zeros((G, B), np.int32)
+    live = rng.choice(G * B, 387, replace=False)
+    lens.flat[live] = np.exp(rng.uniform(np.log(2049), np.log(N + 1), 387)).astype(np.int32)
+    targets = np.zeros((G, B, N), np.int8)
+    for i in live:
+        g, b = divmod(int(i), B)
+        targets[g, b, : lens[g, b]] = rng.integers(0, 26, lens[g, b])
+    return [torch.from_numpy(a).to(dev) for a in (q_all, offs, qlens, targets, lens)]
+
+
 def phase_long_rungs(dev, card):
     """3b: K2, the long-target kernel, against its plain version at its
-    edges and at K2's two launch shapes at every split of their strips
-    over warps, then timed there beside its plain version and this tree's
-    K1 (and, under --parent, the parent's K1) in turns."""
+    edges at every split of their strips over a cluster's blocks and
+    warps, then at its launch shapes (every split again), timed there
+    beside its plain version and this tree's K1 in turns (under --parent,
+    against the parent's K2 too, and every split timed), then the K1/K2
+    grid and the aligner's route on it."""
     import torch
     from sift4g_tpu_torch.align import scan, sw_grouped
 
@@ -806,22 +925,27 @@ def phase_long_rungs(dev, card):
                 kw = dict(mode=mode, gap_open=go, gap_extend=ge)
                 ref = scan.align_scores_grouped(*args, m32, **kw)
                 _k2_against_plain(f"edges N={N} {mode} gaps {go}/{ge}", args, m32, ref,
-                                  long_warps(N), n_chunk=16, m_cap=max(LONG_EDGE_QLENS), **kw)
-                n_launch += len(long_warps(N))
+                                  long_splits(N), n_chunk=16, m_cap=max(LONG_EDGE_QLENS), **kw)
+                n_launch += len(long_splits(N))
     say(f"[3b] K2 == plain at its edges: N in {LONG_EDGE_N} x queries {LONG_EDGE_QLENS} x "
-        f"targets {LONG_EDGE_TLENS}, N - 1, N x gaps {LONG_EDGE_GAPS} x four modes x warps "
-        f"{long_warps(LONG_EDGE_N[0])}: {n_launch} launches, max |diff| 0 "
+        f"targets {LONG_EDGE_TLENS}, N - 1, N x gaps {LONG_EDGE_GAPS} x four modes x (cluster, "
+        f"warps) {long_splits(LONG_EDGE_N[0])}: {n_launch} launches, max |diff| 0 "
         f"({time.perf_counter() - t0:.1f} s)")
 
     rows = []
-    for name, B, N in (("long-target", 256, 8192), ("Titin-class", 32, 35008)):
-        args = grouped_inputs(rng, 1, B, N, (360,), dev, zero_len=False)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, G, B, N, m in LONG_SHAPES:
+        args = _long_shape_inputs(rng, G, B, N, m, dev)
         ref = scan.align_scores_grouped(*args, m32)
-        _k2_against_plain(f"at the {name} shape", args, m32, ref, long_warps(N), n_chunk=64,
-                          m_cap=360)
+        _k2_against_plain(f"at the {name} shape", args, m32, ref, long_splits(N), n_chunk=64,
+                          m_cap=None)
+
+        # as the aligner counts them
+        live, longest = int((args[4] > 0).sum()), int(args[2].max())
 
         def k2():
-            return sw_grouped.sw_scores_grouped_long(*args, m32, n_chunk=64, m_cap=360)
+            return sw_grouped.sw_scores_grouped_long(*args, m32, n_chunk=64, m_cap=None,
+                                                     live_targets=live, longest_query=longest)
 
         def k1():
             return sw_grouped.sw_scores_grouped(*args, m32)
@@ -829,28 +953,37 @@ def phase_long_rungs(dev, card):
         k1_ms, ms = _turns(k1, k2, 3)
         plain_ms = _time_ms(lambda: scan.align_scores_grouped(*args, m32), iters=1, warmup=0)
         nbytes, insns, true = _work("slab", args, {"mode": "SW"})
-        strips, warps, blocks = sw_grouped.long_geometry(1, B, N)
-        say(f"[3b] {name} G=1 B={B} N={N} m=360 ({true / 1e9:.3f} G cells), {card}: K2 "
-            f"{ms:.3f} ms = {true / ms / 1e6:.3f} GCUPS ({strips} strips on {warps} warps a "
-            f"target, {blocks} blocks); this tree's K1 {k1_ms:.3f} ms in turns "
-            f"({k1_ms / ms:.2f}x); plain {plain_ms:.3f} ms; K2 == plain at warps "
-            f"{long_warps(N)} (max |diff| 0)")
+        strips, warps, cl, blocks = sw_grouped.long_geometry(G, B, N, sms, targets=live,
+                                                             rows=longest)
+        say(f"[3b] {name} G={G} B={B} N={N} ({true / 1e9:.3f} G cells, {live} targets), {card}: K2 "
+            if m is None else
+            f"[3b] {name} G={G} B={B} N={N} m={m} ({true / 1e9:.3f} G cells), {card}: K2 "
+            f"{ms:.3f} ms = {true / ms / 1e6:.3f} GCUPS ({strips} strips on clusters of {cl} "
+            f"blocks of {warps} warps, {blocks} blocks); this tree's K1 {k1_ms:.3f} ms in turns "
+            f"({k1_ms / ms:.2f}x); plain {plain_ms:.3f} ms; K2 == plain at every split "
+            f"(max |diff| 0)")
         check(ms < k1_ms, f"K2 at the {name} shape ({ms:.3f} ms) loses to this tree's K1 "
                           f"({k1_ms:.3f} ms)")
         check(ms < plain_ms, f"K2 at the {name} shape ({ms:.3f} ms) loses to its plain version "
                              f"({plain_ms:.3f} ms)")
+        par_ms = None
         if PARENT["k"]:
             par_ms, this_ms = parent_turns(
-                "3b", f"the parent's K1 against K2 at the {name} shape", k2,
-                lambda: PARENT["k"].k1(*args, m32), 3, card, true)
-            check(this_ms < par_ms, f"K2 at the {name} shape loses to the parent's K1")
-        per_w = {w: _time_ms(lambda w=w: sw_grouped.sw_scores_grouped_long(
-            *args, m32, n_chunk=64, m_cap=360, warps_per_target=w), iters=3, warmup=1)
-            for w in (1, 2, 4, 8, 16)}
-        say(f"[3b]   {name}: K2 at forced warps " + ", ".join(
-            f"{w}: {t:.3f} ms" for w, t in per_w.items()))
-        rows.append(dict(name=name, B=B, N=N, ms=ms, k1_ms=k1_ms, plain_ms=plain_ms,
-                         work=(nbytes, insns)))
+                "3b", f"the parent's K2 against this K2 at the {name} shape", k2,
+                lambda: PARENT["k"].k2(*args, m32, n_chunk=64, m_cap=None), 3, card, true)
+            check(this_ms <= (1 + PARENT_TOLERANCE) * par_ms,
+                  f"K2 at the {name} shape is slower than the parent's K2")
+            splits = {}
+            for cl_w in long_splits(N)[1:]:
+                splits[cl_w] = _time_ms(lambda cw=cl_w: sw_grouped.sw_scores_grouped_long(
+                    *args, m32, n_chunk=64, m_cap=None, cluster=cw[0], warps_per_block=cw[1]),
+                    iters=3, warmup=1)
+            say(f"[3b]   {name}: K2 at forced (cluster, warps) " + ", ".join(
+                f"{c}x{w}: {t:.3f} ms" for (c, w), t in splits.items()))
+        rows.append(dict(name=name, G=G, B=B, N=N, ms=ms, k1_ms=k1_ms, plain_ms=plain_ms,
+                         par_ms=par_ms, work=(nbytes, insns)))
+        del args, ref
+    _cluster_against_one_block(rng, m32, sms, dev, card)
     # the K1/K2 crossover: one group of B full targets at each long rung
     # and query length; K2 == K1 on every launch, K2 == plain on the widest
     # of the lowest rung; the aligner's route must pick the faster kernel
@@ -864,7 +997,8 @@ def phase_long_rungs(dev, card):
                 args = grouped_inputs(rng, 1, B, N, (m,), dev, zero_len=False)
                 if (m, N, B) == (LONG_GRID_M[0], LONG_GRID_N[0], LONG_GRID_B[-1]):
                     ref = scan.align_scores_grouped(*args, m32)
-                    _k2_against_plain(f"on the launch B={B} N={N}", args, m32, ref, (None,))
+                    _k2_against_plain(f"on the launch B={B} N={N}", args, m32, ref,
+                                      ((None, None),))
                     del ref
 
                 def k2():
@@ -877,8 +1011,10 @@ def phase_long_rungs(dev, card):
                 k1_ms, ms = _turns(k1, k2, 2)
                 on_k2 = _long_route([(m, np.full(B, N))])
                 grid.append((m, N, B, ms, k1_ms, on_k2))
+                _, warps, cl, _ = sw_grouped.long_geometry(1, B, N, sms)
                 say(f"[3b] crossover G=1 B={B} N={N} m={m} (full targets), {card}: K2 "
-                    f"{ms:.3f} ms, K1 {k1_ms:.3f} ms in turns ({k1_ms / ms:.2f}x); the route "
+                    f"{ms:.3f} ms ({B * N * m / ms / 1e9:.3f} T cells/s, clusters of {cl} x "
+                    f"{warps} warps), K1 {k1_ms:.3f} ms in turns ({k1_ms / ms:.2f}x); the route "
                     f"picks {'K2' if on_k2 else 'K1'}")
                 del args
     for m in LONG_GRID_M:
@@ -1241,6 +1377,21 @@ def phase_long_tail(main, tmp, card):
         if N not in by_rung or padded > by_rung[N][0]:
             by_rung[N] = (padded, true, args, kw)
     say(f"[4c] every K2 launch == plain on its own inputs (max |diff| {max_err})")
+    sms = torch.cuda.get_device_properties(args[3].device).multi_processor_count
+    if PARENT["k"]:
+        for i, (args, kw, out) in enumerate(recorded):
+            G, B = args[4].shape
+            N = args[3].shape[2]
+            true = int((args[2].long() * args[4].long().sum(dim=1)).sum())
+            par_ms, this_ms = parent_turns(
+                "4c", f"the parent's K2 against this K2 on launch {i} (G={G} B={B} N={N}, "
+                f"{int((args[4] > 0).sum())} targets, geometry "
+                f"{_geometry_of(sms, args, kw)})",
+                lambda: sw_grouped.sw_scores_grouped_long(*args, **kw),
+                lambda: PARENT["k"].k2(*args, **{k: v for k, v in kw.items()
+                                                 if k not in K2_HINTS}), 2, card, true)
+            check(this_ms <= (1 + PARENT_TOLERANCE) * par_ms,
+                  f"K2 on launch {i} (G={G} B={B} N={N}) is slower than the parent's K2")
     rows, largest = [], None
     for N in sorted(by_rung):
         padded, true, args, kw = by_rung[N]
@@ -1255,19 +1406,20 @@ def phase_long_tail(main, tmp, card):
 
         check(torch.equal(k1(), k2()), f"K1 and K2 differ on the rung-{N} launch")
         k1_ms, ms = _turns(k1, k2, 2)
-        strips, warps, _ = sw_grouped.long_geometry(G, B, N)
+        strips, warps, cl, _ = _geometry_of(sms, args, kw)
         live = int((args[4] > 0).sum())
         say(f"[4c] rung {N}: {n_at[N]} launches; largest G={G} B={B} ({padded / 1e9:.3f} G padded, "
             f"{true / 1e9:.3f} G true cells, {live} targets), {card}: K2 "
-            f"{ms:.3f} ms ({true / ms / 1e6:.2f} true GCUPS, {warps} warps a target) against "
-            f"K1 {k1_ms:.3f} ms in turns ({k1_ms / ms:.2f}x)")
-        per_w = {w: _time_ms(lambda w=w: sw_grouped.sw_scores_grouped_long(
-            *args, **dict(kw, warps_per_target=w)), iters=2, warmup=1) for w in (1, 2, 4, 8, 16)}
-        say(f"[4c]   rung {N}: K2 at forced warps " + ", ".join(
-            f"{w}: {t:.3f} ms" for w, t in per_w.items()))
+            f"{ms:.3f} ms ({true / ms / 1e6:.2f} true GCUPS, clusters of {cl} blocks of {warps} "
+            f"warps) against K1 {k1_ms:.3f} ms in turns ({k1_ms / ms:.2f}x)")
+        per_w = {cw: _time_ms(lambda cw=cw: sw_grouped.sw_scores_grouped_long(
+            *args, **dict(kw, cluster=cw[0], warps_per_block=cw[1])), iters=2, warmup=1)
+            for cw in ((1, 4), (1, 16), (2, 8), (4, 4), (4, 16), (8, 2))}
+        say(f"[4c]   rung {N}: K2 at forced (cluster, warps) " + ", ".join(
+            f"{c}x{w}: {t:.3f} ms" for (c, w), t in per_w.items()))
         rows.append((N, ms, k1_ms))
-        check(ms <= ROUTE_SLACK * k1_ms, f"the route's K2 at rung {N} takes {ms:.3f} ms "
-                                         f"against K1's {k1_ms:.3f} ms")
+        check(ms <= TAIL_ROUTE_SLACK * k1_ms, f"the route's K2 at rung {N} takes {ms:.3f} ms "
+                                              f"against K1's {k1_ms:.3f} ms")
         if largest is None or padded > largest[0]:
             largest = (padded, true, args, kw, k1_ms, ms)
     for args, kw, out in wide:
@@ -1290,8 +1442,8 @@ def phase_long_tail(main, tmp, card):
         say(f"[4c] rung {N}: K1's launch G={G} B={B} ({true / 1e9:.3f} G true cells, "
             f"{int((args[4] > 0).sum())} targets) == plain, {card}: K1 {k1_ms:.3f} ms against "
             f"K2 {k2_ms:.3f} ms in turns ({k2_ms / k1_ms:.2f}x)")
-        check(k1_ms <= ROUTE_SLACK * k2_ms, f"the route's K1 at rung {N} takes {k1_ms:.3f} ms "
-                                            f"against K2's {k2_ms:.3f} ms")
+        check(k1_ms <= TAIL_ROUTE_SLACK * k2_ms, f"the route's K1 at rung {N} takes {k1_ms:.3f} "
+                                                 f"ms against K2's {k2_ms:.3f} ms")
     padded, true, args, kw, k1_ms, ms = largest
     plain_ms = _time_ms(lambda: scan.align_scores_grouped(
         *args[:6], mode=kw["mode"], gap_open=kw["gap_open"], gap_extend=kw["gap_extend"]),
@@ -2660,10 +2812,11 @@ def main(argv=None) -> int:
     k5["launches"] = bench["launches"]["dp_row_probe"]
     for row in long_rungs:
         bound_ms, bound_by = _bound(*row["work"])
-        say(f"[3b] {row['name']} B={row['B']} N={row['N']}, {card}: K2 {row['ms']:.3f} ms "
-            f"({100 * bound_ms / row['ms']:.1f} % of its bound), K1 {row['k1_ms']:.3f} ms, plain "
-            f"{row['plain_ms']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); design bound "
-            f"(the target's byte a column and the output) "
+        par = f", the parent's K2 {row['par_ms']:.3f} ms" if row["par_ms"] else ""
+        say(f"[3b] {row['name']} G={row['G']} B={row['B']} N={row['N']}, {card}: K2 "
+            f"{row['ms']:.3f} ms ({100 * bound_ms / row['ms']:.1f} % of its bound){par}, K1 "
+            f"{row['k1_ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound {bound_ms:.3f} ms "
+            f"({bound_by}); design bound (the target's byte a column and the output) "
             f"{row['work'][0] / HBM_BYTES_PER_S * 1e3:.4f} ms")
     kernels = []
     for meta, k, launches in ((K1, k1, main_path.launches), (K2, k2, k2["launches"]),

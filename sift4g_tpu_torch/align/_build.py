@@ -112,11 +112,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp, vp, vp,               # targets, lens, matrix32
         i32, i32, i32,            # G, B, N
         i32, i32, i32,            # mode, go, ge
-        i32,                      # warps a target
+        i32, i32,                 # warps a block, blocks a cluster (one cluster a target)
         vp, vp, vp,               # scratch, out, stream
     ]
     lib.sift4g_sw_long_scratch_bytes.restype = ctypes.c_longlong
-    lib.sift4g_sw_long_scratch_bytes.argtypes = [i32, i32, i32, i32]   # G, B, N, warps
+    # G, B, N, warps, cluster
+    lib.sift4g_sw_long_scratch_bytes.argtypes = [i32, i32, i32, i32, i32]
     lib.sift4g_dp_row_probe.restype = i32
     lib.sift4g_dp_row_probe.argtypes = [
         i32, i32, i32, i32,       # B, N, M, salt

@@ -103,9 +103,14 @@ LONG_RUNG = 3072
 # targets it holds; K2 spreads a target over many warps and takes about
 # the launch's cells at its full-card rate.  The constant is that rate
 # times K1's time a column and pass, both from ``chip_smoke.py`` phase 3b
-# on an H100 at 360 query rows (0.85-1.13 T cells/s on 4,096 full
-# targets, 0.25-0.26 us at 64-256 targets): 2.1e5-2.9e5 cells
-LONG_CELLS_PER_COLUMN = 1 << 18
+# on an H100: K2's 1.25-1.44 T cells/s on 1,024-4,096 full targets at 360
+# query rows (its cluster kernel; 0.85-1.13 before) times K1's 0.250-0.260
+# us a column at 64 targets gives 3.1e5-3.7e5 cells; at 1,500 rows,
+# 1.45-1.57 T cells/s times 0.282-0.290 us, 4.1e5-4.6e5.  3 x 2^17 lies
+# between: the crossover falls at 1,092 full targets at 360 rows, where
+# K2 ran 1.00-1.07x K1 on 1,024, and at 786 at 1,500, where the two ran
+# within 2 % of each other on 1,024
+LONG_CELLS_PER_COLUMN = 3 << 17
 K1_PASS_ROWS = 16 * 32    # TILE_ROWS x one warp a target
 
 
@@ -476,13 +481,20 @@ class BatchAligner:
             fn = make_grouped_resident_sharded(mesh, n_pad=n_pad, screen_k=k_eff, **gaps)
             dbs = [self.resident.on(d) for d in mesh]
             results = fn(q_l, go_l, gl_l, dbs, tg_l, tl_l, m32, *screen)
-        elif batch_split:
-            # K2 needs no query bound
-            fn = make_grouped_long_sharded(mesh, scorer=scorer, m_cap=None, **gaps)
-            results = fn(q_l, go_l, gl_l, tg_l, tl_l, m32)
         else:
-            fn = make_grouped_sharded(mesh, screen_k=k_eff, scorer=scorer, **gaps)
-            results = fn(q_l, go_l, gl_l, tg_l, tl_l, m32, *screen)
+            # K2's geometry counts each shard's rows that hold a target and
+            # reads its longest query
+            k2 = {}
+            if on_k2:
+                k2 = dict(live_targets=[int(np.count_nonzero(v[0])) for v in views],
+                          longest_query=[int(v[2].max(initial=0)) for v in views])
+            if batch_split:
+                # K2 needs no query bound
+                fn = make_grouped_long_sharded(mesh, scorer=scorer, m_cap=None, **gaps)
+                results = fn(q_l, go_l, gl_l, tg_l, tl_l, m32, **k2)
+            else:
+                fn = make_grouped_sharded(mesh, screen_k=k_eff, scorer=scorer, **gaps)
+                results = fn(q_l, go_l, gl_l, tg_l, tl_l, m32, *screen, **k2)
         for sh, res in zip(shards, results):
             sh.result = res
         self.launches += 1

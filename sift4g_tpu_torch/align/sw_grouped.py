@@ -24,9 +24,11 @@ card's SM count (K4's launch is one group, G = 1); ``threads_per_target=``
 forces T (tests and ``chip_smoke.py`` run every value).
 
 K2 runs its own body: a target's columns in strips of ``LONG_STRIP``
-columns over up to ``MAX_LONG_WARPS`` warps of one block, the query rows
-streamed through them (``csrc/sw_grouped_long.cu``); ``long_geometry``
-picks the warps, ``warps_per_target=`` forces them.
+columns over the warps of a thread-block cluster (up to
+``MAX_LONG_CLUSTER`` blocks of up to ``MAX_LONG_WARPS`` warps), the query
+rows streamed through them one row a step, steps unrolled in pairs
+(``csrc/sw_grouped_long.cu``); ``long_geometry`` picks the cluster and
+the warps, ``cluster=`` and ``warps_per_block=`` force them.
 
 Counters (plain integers a run reads to show which path it took):
 ``kernel_launches`` counts K1 launches made here on int32,
@@ -60,10 +62,19 @@ MIN_GROUP_THREADS = 8
 WARPS_PER_SM = 16
 MAX_BLOCK = 128
 
-# K2: columns a warp (16 a lane) and the most warps a block holds
-# (kStrip and kMaxWarps of csrc/sw_grouped_long.cu)
+# K2: columns a warp (16 a lane), the most warps a block holds and the
+# most blocks a cluster holds (kStrip, kMaxWarps and kMaxCluster of
+# csrc/sw_grouped_long.cu; 8 is the portable cluster size: 16 one-warp
+# blocks, non-portable, lost to one block of 16 warps at every shape of
+# chip_smoke.py phase 3b on an H100)
 LONG_STRIP = 512
 MAX_LONG_WARPS = 16
+MAX_LONG_CLUSTER = 8
+# the shortest query for which K2's geometry spreads a target over a
+# cluster (long_geometry): on an H100, against launches of 4-48 targets of
+# 32-69 strips (chip_smoke.py phase 3b), the cluster lost to one block at
+# 256 rows and below and tied or won from 360 rows up
+LONG_CLUSTER_ROWS = 320
 
 kernel_launches = 0
 i16_launches = 0
@@ -301,29 +312,71 @@ def sw_scores_grouped_resident(
     return out
 
 
-def long_geometry(G: int, B: int, N: int, warps_per_target=None):
-    """(strips, warps, blocks) of a K2 launch of G groups of B targets on
-    an N-wide rung: the strips of ``LONG_STRIP`` columns that cover N, the
-    warps of a block (one block a target), and the blocks.
+def _balanced(strips: int, warps: int) -> int:
+    """The fewest warps that run ``strips`` strips in as many turns as
+    ``warps`` warps do (no turn with idle warps where fewer do)."""
+    return -(-strips // -(-strips // warps))
 
-    A block takes one warp a strip, at most ``MAX_LONG_WARPS`` (their
-    profiles fill the SM's shared memory); a wider target runs its strips
-    in turn.  On an H100 that was the best split, or within 3 % of it, on
-    every K2 launch of the long-tail run and at B = 32, N = 35,008; a
-    launch of B full targets at B = 256, N = 8,192 ran best at 4 warps
-    (0.76 against 0.86 ms), one at B = 4,096, N = 3,072 at 2 (3.40 against
-    4.19 ms) (``chip_smoke.py`` phases 3b and 4c print every split).
-    ``warps_per_target`` forces the warps (1 to ``MAX_LONG_WARPS``)."""
+
+def long_geometry(G: int, B: int, N: int, sm_count: int, warps_per_block=None,
+                  cluster=None, targets=None, rows=None):
+    """(strips, warps, cluster, blocks) of a K2 launch of G groups of B
+    targets on an N-wide rung, on a card of ``sm_count`` SMs: the strips
+    of ``LONG_STRIP`` columns that cover N, the warps of a block, the
+    blocks of the cluster that scores one target, and the blocks.
+    ``targets``: how many of the G x B rows hold a target (all of them by
+    default); a row of length 0 ends its cluster at once.  ``rows``: the
+    launch's longest query (unknown by default).
+
+    A launch of fewer targets than SMs, of targets wider than one block's
+    warps (16 strips), against a query of ``LONG_CLUSTER_ROWS`` rows or
+    more, spreads each target over a cluster of blocks, three quarters of
+    the SMs a target has to itself (at most ``MAX_LONG_CLUSTER``; a
+    cluster of 4 blocks of 8 or 16 warps on 32 targets took twice as long
+    as one of 3 on an H100: the card could not place them all at once),
+    each block one warp a strip and at most 8 warps; a target of more
+    strips than that runs them in balanced turns.  A cluster takes a
+    target's strips in fewer turns, or on fewer warps an SM, which pays
+    where the query's rows, not the wavefront's lag of 32 steps a strip,
+    fill the chain; the ring between blocks publishes its rows in
+    batches, and against a shorter query (or an unknown one) one block
+    was faster.  Any other launch keeps one block a target, one
+    warp a strip (at most ``MAX_LONG_WARPS``).  Only a launch of 6 targets
+    an SM or more (1,024 full targets and up on an H100) gives a target 4
+    warps, taking its strips in balanced turns (many blocks an SM hide
+    each other's wavefronts); the long-tail run's ragged launches of up to
+    a few hundred targets ran slower so.  These were the best splits, or
+    close to them, on the launches of ``chip_smoke.py`` phases 3b and 4c,
+    which print every split at K2's launch shapes, time the cluster
+    against one block at several query lengths and time each long-tail
+    launch.
+    ``warps_per_block`` forces the warps (1 to ``MAX_LONG_WARPS``),
+    ``cluster`` the blocks a cluster (1 to ``MAX_LONG_CLUSTER``)."""
     strips = -(-N // LONG_STRIP)
-    if warps_per_target is None:
-        warps = max(1, min(strips, MAX_LONG_WARPS))
+    targets = max(1, G * B if targets is None else min(int(targets), G * B))
+    if cluster is None:
+        cl = 1
+        if (targets < sm_count and strips > MAX_LONG_WARPS and rows is not None
+                and rows >= LONG_CLUSTER_ROWS):
+            cl = max(1, min(MAX_LONG_CLUSTER, 3 * sm_count // (4 * targets)))
     else:
-        if isinstance(warps_per_target, bool) or warps_per_target not in range(
+        if isinstance(cluster, bool) or cluster not in range(1, MAX_LONG_CLUSTER + 1):
+            raise ValueError(f"cluster must be 1 to {MAX_LONG_CLUSTER}, got {cluster!r}")
+        cl = int(cluster)
+    if warps_per_block is None:
+        if cl > 1:
+            warps = -(-_balanced(strips, 8 * cl) // cl)
+        elif targets >= 6 * sm_count:
+            warps = _balanced(strips, 4)
+        else:
+            warps = min(strips, MAX_LONG_WARPS)
+    else:
+        if isinstance(warps_per_block, bool) or warps_per_block not in range(
                 1, MAX_LONG_WARPS + 1):
-            raise ValueError(f"warps_per_target must be 1 to {MAX_LONG_WARPS}, got "
-                             f"{warps_per_target!r}")
-        warps = int(warps_per_target)
-    return strips, warps, G * B
+            raise ValueError(f"warps_per_block must be 1 to {MAX_LONG_WARPS}, got "
+                             f"{warps_per_block!r}")
+        warps = int(warps_per_block)
+    return strips, warps, cl, G * B * cl
 
 
 def sw_scores_grouped_long(
@@ -339,7 +392,10 @@ def sw_scores_grouped_long(
     gap_extend: int = 1,
     n_chunk: int = 512,
     m_cap: int | None = 2048,
-    warps_per_target: int | None = None,
+    warps_per_block: int | None = None,
+    cluster: int | None = None,
+    live_targets: int | None = None,
+    longest_query: int | None = None,
 ) -> torch.Tensor:
     """K2, the long-target scorer: scores (G, B) int32 of group g's query
     against its B targets, the function of ``sw_scores_grouped`` (and of
@@ -354,15 +410,22 @@ def sw_scores_grouped_long(
     kernel needs no bound, and a check there would cost a host sync or a
     device assertion that ends the process's CUDA context.  ``m_cap=None``
     (the port's callers, which hold no bound) checks nothing.
-    ``warps_per_target`` forces the kernel's warps (:func:`long_geometry`);
-    the plain version ignores it."""
+    ``warps_per_block`` and ``cluster`` force the kernel's warps a block
+    and blocks a cluster; ``live_targets`` (the rows of length > 0) and
+    ``longest_query`` (the longest of ``q_lens``), which a caller holding
+    the lengths on the host knows, inform them (:func:`long_geometry`).
+    The plain version ignores all four.  A
+    cluster the card cannot place is refused by the launch, and the call
+    raises."""
     if mode not in MODE_IDS:
         raise ValueError(f"unknown alignment mode {mode!r}")
     G, B, N = targets.shape
     if n_chunk <= 0 or N % n_chunk:
         raise ValueError(f"N = {N} must be a multiple of n_chunk = {n_chunk}")
-    _, warps, _ = long_geometry(G, B, N, warps_per_target)
     dev = targets.device
+    # checks the forced geometry on any device; the SM count only matters
+    # on the card
+    long_geometry(G, B, N, 1, warps_per_block, cluster)
     if dev.type == "cpu":
         if m_cap is not None and G and int(q_lens.max()) > m_cap:
             raise ValueError(f"a query of {int(q_lens.max())} rows exceeds m_cap = {m_cap}")
@@ -385,10 +448,13 @@ def sw_scores_grouped_long(
     if gap_open < 0 or gap_extend < 0:
         raise ValueError("gap penalties must be >= 0")
 
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    _, warps, cl, _ = long_geometry(G, B, N, _sm_count(index), warps_per_block, cluster,
+                                    live_targets, longest_query)
     lib = _build.load()
     out = torch.empty((G, B), dtype=torch.int32, device=dev)
     # with strips in turn: each strip's bottom (H, F) row between row tiles
-    nbytes = lib.sift4g_sw_long_scratch_bytes(G, B, N, warps)
+    nbytes = lib.sift4g_sw_long_scratch_bytes(G, B, N, warps, cl)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -396,7 +462,7 @@ def sw_scores_grouped_long(
             q_codes_all.data_ptr(), q_codes_all.shape[0],
             q_offsets.data_ptr(), q_lens.data_ptr(),
             targets.data_ptr(), target_lens.data_ptr(), matrix32.data_ptr(),
-            G, B, N, MODE_IDS[mode], int(gap_open), int(gap_extend), warps,
+            G, B, N, MODE_IDS[mode], int(gap_open), int(gap_extend), warps, cl,
             None if scratch is None else scratch.data_ptr(), out.data_ptr(), stream,
         )
     if rc != 0:

@@ -66,6 +66,20 @@ def _scorer(kernel: str, which: str):
     return lambda *args, **kw: getattr(mod, name)(*args, **kw)
 
 
+def _k2_hints(kernel, scorer, live_targets, longest_query, i):
+    """K2's keywords for shard i's count of rows that hold a target and
+    its longest query; none for the other scorers and the plain
+    versions."""
+    if kernel != "cuda" or scorer != "long":
+        return {}
+    kw = {}
+    if live_targets is not None:
+        kw["live_targets"] = int(live_targets[i])
+    if longest_query is not None:
+        kw["longest_query"] = int(longest_query[i])
+    return kw
+
+
 def local_devices() -> List[torch.device]:
     """Every visible CUDA card, or the CPU on a host without one."""
     if torch.cuda.is_available():
@@ -278,11 +292,15 @@ def make_grouped_sharded(
     fn(q_codes_all (Qm,) i32 replicated, q_offsets (G,) i32 sharded,
        q_lens (G,) i32 sharded, targets (G, B, N) i8 sharded on axis 0,
        target_lens (G, B) i32 sharded, matrix32 (32, 32) i32 replicated
-       [, smin (G,) i32 sharded when screen_k > 0])
+       [, smin (G,) i32 sharded when screen_k > 0], *, live_targets=None,
+       longest_query=None)
       -> scores (G, B) i32, or (G, screen_k) screened words, sharded
 
     ``screen_k`` > 0 screens each shard's scores on its device
-    (``align/scan.screen_topk_words``)."""
+    (``align/scan.screen_topk_words``).  ``live_targets`` and
+    ``longest_query``, one count a shard, tell K2 how many of a shard's
+    rows hold a target and its longest query (its geometry,
+    ``sw_grouped.long_geometry``); the other scorers ignore them."""
     if scorer not in ("grouped", "long"):
         raise ValueError(f"scorer must be 'grouped' or 'long', got {scorer!r}")
     score = _scorer(kernel, scorer)
@@ -297,7 +315,8 @@ def make_grouped_sharded(
     else:
         bounds = dict(max_qlen=max_qlen, max_sub=max_sub, acc=acc)
 
-    def fn(q_all, q_offsets, q_lens, targets, target_lens, matrix32, *smin):
+    def fn(q_all, q_offsets, q_lens, targets, target_lens, matrix32, *smin, live_targets=None,
+           longest_query=None):
         if len(smin) != (1 if screen_k else 0):
             raise TypeError("the smin argument comes with screen_k > 0, and only then")
         width = (targets[0] if isinstance(targets, (list, tuple)) else targets).shape[-1]
@@ -310,7 +329,8 @@ def make_grouped_sharded(
         out = []
         for i in range(len(mesh)):
             s = score(qa[i], go[i], gl[i], tg[i], tl[i], ms[i],
-                      mode=mode, gap_open=gap_open, gap_extend=gap_extend, **bounds)
+                      mode=mode, gap_open=gap_open, gap_extend=gap_extend, **bounds,
+                      **_k2_hints(kernel, scorer, live_targets, longest_query, i))
             out.append(scan.screen_topk_words(s, sm[i], screen_k) if screen_k else s)
         return out
 
@@ -341,7 +361,10 @@ def make_grouped_long_sharded(
 
     fn(q (Qm,) i32, go (G,) i32, gl (G,) i32 replicated,
        targets (G, B, N) i8 sharded on axis 1, target_lens (G, B) i32
-       sharded on axis 1, matrix32) -> scores (G, B) i32 sharded on axis 1"""
+       sharded on axis 1, matrix32, *, live_targets=None, longest_query=None)
+      -> scores (G, B) i32 sharded on axis 1
+
+    ``live_targets``, ``longest_query``: as for :func:`make_grouped_sharded`."""
     if scorer not in ("grouped", "long"):
         raise ValueError(f"scorer must be 'grouped' or 'long', got {scorer!r}")
     score = _scorer(kernel, scorer)
@@ -349,14 +372,15 @@ def make_grouped_long_sharded(
     # neither K1 nor the plain version takes them
     chunks = dict(n_chunk=n_chunk, m_cap=m_cap) if kernel == "cuda" and scorer == "long" else {}
 
-    def fn(q, go, gl, targets, target_lens, matrix32):
+    def fn(q, go, gl, targets, target_lens, matrix32, *, live_targets=None, longest_query=None):
         qs, ms = _replicated(mesh, q, i32), _replicated(mesh, matrix32, i32)
         gos, gls = _replicated(mesh, go, i32), _replicated(mesh, gl, i32)
         tg = _sharded(mesh, targets, 1, torch.int8)
         tl = _sharded(mesh, target_lens, 1, i32)
         return [
             score(qs[i], gos[i], gls[i], tg[i], tl[i], ms[i],
-                  mode=mode, gap_open=gap_open, gap_extend=gap_extend, **chunks)
+                  mode=mode, gap_open=gap_open, gap_extend=gap_extend, **chunks,
+                  **_k2_hints(kernel, scorer, live_targets, longest_query, i))
             for i in range(len(mesh))
         ]
 

@@ -429,26 +429,39 @@ def _inputs_with_lens(rng, qlens, lens, N, dev):
                                                   lens.astype(np.int32))]
 
 
+def long_splits(N):
+    """(cluster, warps a block) of K2 at every split of N's strips: the
+    geometry's own, one block of 1 to min(strips, 16) warps and of 16 (idle
+    warps), clusters of 2 to 8 one-warp blocks (every ring between blocks;
+    strips in turn below the strips), 2 blocks of 2 and 4 of 4 warps, and 8
+    blocks of 16 (idle blocks)."""
+    strips = -(-N // sw_grouped.LONG_STRIP)
+    top = min(strips, sw_grouped.MAX_LONG_WARPS)
+    return ((None, None), *((1, w) for w in range(1, top + 1)),
+            *(((1, sw_grouped.MAX_LONG_WARPS),) if top < sw_grouped.MAX_LONG_WARPS else ()),
+            *((c, 1) for c in range(2, sw_grouped.MAX_LONG_CLUSTER + 1)),
+            (2, 2), (4, 4), (sw_grouped.MAX_LONG_CLUSTER, sw_grouped.MAX_LONG_WARPS))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("N", [2560, 2336])
 @pytest.mark.parametrize("mode", MODES)
 def test_long_kernel_at_every_warp_split_and_edge(cuda, mode, N):
-    """K2 == plain at every split of N's strips over warps (one warp a
-    strip, fewer warps taking strips in turn, idle warps), gaps with
-    go < ge among them."""
-    strips = -(-N // sw_grouped.LONG_STRIP)
+    """K2 == plain at every split of N's strips over a cluster's blocks and
+    warps (one warp a strip, fewer warps taking strips in turn, idle warps
+    and blocks), gaps with go < ge among them."""
     args = _long_edge_inputs(N, N, cuda)
     for go, ge in ((10, 1), (11, 2), (1, 3)):
         m32 = scan.matrix32_from_scorer(_blosum62(), cuda)
         ref = scan.align_scores_grouped(*args, m32, mode=mode, gap_open=go, gap_extend=ge)
-        for warps in (None, *range(1, strips + 1), sw_grouped.MAX_LONG_WARPS):
+        for cl, warps in long_splits(N):
             sw_grouped.reset_counters()
             got = sw_grouped.sw_scores_grouped_long(
                 *args, m32, mode=mode, gap_open=go, gap_extend=ge, n_chunk=16, m_cap=1025,
-                warps_per_target=warps)
+                cluster=cl, warps_per_block=warps)
             torch.cuda.synchronize()
             assert sw_grouped.long_launches == 1
-            assert torch.equal(got, ref), f"gaps {go}/{ge} warps={warps}"
+            assert torch.equal(got, ref), f"gaps {go}/{ge} cluster={cl} warps={warps}"
 
 
 @pytest.mark.gpu
@@ -460,10 +473,10 @@ def test_long_kernel_with_an_8192_row_query(cuda, mode):
     args = _inputs_with_lens(rng, (8192,), lens, 1024, cuda)
     m32 = scan.matrix32_from_scorer(_blosum62(), cuda)
     ref = scan.align_scores_grouped(*args, m32, mode=mode)
-    for warps in (None, 1):
+    for cl, warps in ((None, None), (1, 1), (2, 1)):
         got = sw_grouped.sw_scores_grouped_long(*args, m32, mode=mode, m_cap=8192,
-                                                warps_per_target=warps)
-        assert torch.equal(got, ref), f"warps={warps}"
+                                                cluster=cl, warps_per_block=warps)
+        assert torch.equal(got, ref), f"cluster={cl} warps={warps}"
 
 
 @pytest.mark.gpu
@@ -494,7 +507,9 @@ def test_long_kernel_refuses_what_it_does_not_take(cuda):
         sw_grouped.sw_scores_grouped_long(*args[:3], args[3][..., :2552].contiguous(),
                                           args[4], m32, n_chunk=8)
     with pytest.raises(ValueError):
-        sw_grouped.sw_scores_grouped_long(*args, m32, warps_per_target=0)
+        sw_grouped.sw_scores_grouped_long(*args, m32, warps_per_block=0)
+    with pytest.raises(ValueError):
+        sw_grouped.sw_scores_grouped_long(*args, m32, cluster=9)
 
 
 @pytest.mark.gpu

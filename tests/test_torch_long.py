@@ -134,21 +134,34 @@ def _shfl_up(v):
 
 
 def _long_model(q, t, tlen, m32, mode, go, ge, *, lanes, cols, warps, ring, row_tile,
-                publish=4, release=8, corner_shift=0):
+                publish=2, release=4, remote=(16, 16), cluster=1, corner_shift=0,
+                edge_shift=0):
     """The score of the query ``q`` against ``t[:tlen]`` (``t`` the
-    target's slab row, N = len(t)) as one block of the CUDA kernel
-    computes it: ``warps`` warps of ``lanes`` lanes, ``cols`` columns a
-    lane (strips of W = lanes x cols columns; the kernel runs 32 and 16),
-    rings of ``ring`` rows between warps and of 2 x ``row_tile`` rows into
-    warp 0 (the kernel's 64 and 1024), a producer publishing its row count
-    every ``publish`` rows and a consumer its count every ``release`` rows
-    (and both at a strip's last row; the kernel's 4 and 8: deadlock-free
-    while ``ring >= publish + release - 1``).  Each warp is a generator that
-    yields before each of its steps and at every wait of the kernel (a
-    predicate on the rings' row counts); a scheduler advances every warp
-    whose wait holds, one yield a tick, and fails on a tick where none
-    can move (a deadlock).  ``corner_shift`` takes the corner H from a row
-    that many rows too early (a deliberate fault)."""
+    target's slab row, N = len(t)) as one cluster of the CUDA kernel
+    computes it: ``cluster`` blocks of ``warps`` warps (P positions,
+    position rank x warps + warp) of ``lanes`` lanes, ``cols`` columns a
+    lane (strips of W = lanes x cols columns; the kernel runs 32 and 16).
+    Rings of ``ring`` rows between positions and of two tiles of rows into
+    position 0 (the kernel's 64 and 1024) live in the consumer's block,
+    with its filled count; the freed count lives in the producer's block: a
+    write into another block's ring or count stands for a store through
+    distributed shared memory.  A producer publishes its row count every
+    ``publish`` rows, a consumer its count every ``release`` rows (and both
+    at a tile's last row; the kernel's 2 and 4), every ``remote`` =
+    (publish, release) rows on a ring between two blocks (the kernel's 16
+    and 16); deadlock-free while ``ring`` is at least publish + release - 1
+    for both.  A row's query code is read two steps
+    ahead and its scores one step ahead, as in the kernel.  Each warp is a
+    generator that yields before each of its steps and at every wait of
+    the kernel (a predicate on the counts: the rings' and the cluster
+    barriers' at the start and the end, the block barrier before the
+    block's maximum goes to rank 0); a scheduler advances every warp whose
+    wait holds, one yield a tick, and fails on a tick where none can move
+    (a deadlock).  Rank 0 takes the cluster's maximum after the last
+    barrier.  Faults, for the tests that show the cases catch them:
+    ``corner_shift`` takes the corner H from a row that many rows too
+    early; ``edge_shift`` makes a warp whose producer is in another block
+    read each row's edge from the row before."""
     N, W, M = len(t), lanes * cols, len(q)
     L = min(max(tlen, 0), N)
     free_top, free_left = mode != "NW", mode in ("SW", "OV")
@@ -159,30 +172,43 @@ def _long_model(q, t, tlen, m32, mode, go, ge, *, lanes, cols, warps, ring, row_
             return 0 if L > 0 else NEG
         return 0
     m8 = np.clip(m32.astype(np.int64), -128, 127)
+    P = cluster * warps
     strips_max = -(-N // W)
-    wide = strips_max > warps
+    wide = strips_max > P
     S = -(-L // W)
-    tile = row_tile if S > warps else M
+    tile = row_tile if S > P else M
     R = -(-M // tile)
-    caps = [2 * row_tile if wide else 0] + [ring] * (warps - 1)
-    bufs = [[None] * c for c in caps]
-    prod, cons = [0] * warps, [0] * warps
+    ring0 = 2 * row_tile if wide else ring
+    smem = [dict(ring=[[None] * (ring0 if w == 0 else ring) for w in range(warps)],
+                 filled=[0] * warps, freed=[0] * warps, red=[None] * warps,
+                 cred=[None] * cluster) for _ in range(cluster)]
     scratch, corners, result = {}, {}, {}
+    barrier = {"start": 0, "end": 0, "block": [0] * cluster}
     lane = np.arange(lanes)
     k_idx = np.arange(cols)
 
-    def warp_prog(w):
-        nxt = (w + 1) % warps
-        cseq = pseq = 0
+    def warp_prog(rank, w):
+        pos = rank * warps + w
+        p_rank, p_warp = (rank, w - 1) if w > 0 else ((rank - 1) % cluster, warps - 1)
+        c_rank, c_warp = (rank, w + 1) if w + 1 < warps else ((rank + 1) % cluster, 0)
+        me, dst = smem[rank], smem[c_rank]
+        in_ring, out_ring = me["ring"][w], dst["ring"][c_warp]
+        in_cap, out_cap = len(in_ring), len(out_ring)
+        shifted = edge_shift and p_rank != rank
+        pub = remote[0] if c_rank != rank else publish
+        rel = remote[1] if p_rank != rank else release
+        cseq = pseq = avail = room = 0
         best, acc = 0, NEG
+        barrier["start"] += 1
+        yield lambda: barrier["start"] == P
         for r in range(R):
             r0, rows = r * tile, min(tile, M - r * tile)
-            for s in range(w, S, warps):
+            for s in range(pos, S, P):
                 left, right = s > 0, s + 1 < S
                 col = s * W + lane[:, None] * cols + k_idx[None, :]        # (lanes, cols)
                 # the profile: column codes' low five bits, -128 past the target
-                codes = t[np.minimum(col, N - 1)].astype(np.int64) & 31
-                prof = np.where(col[None] < L, m8[:, codes], -128)        # (32, lanes, cols)
+                tcodes = t[np.minimum(col, N - 1)].astype(np.int64) & 31
+                prof = np.where(col[None] < L, m8[:, tcodes], -128)       # (32, lanes, cols)
                 kl = np.where((L - 1 >= col[:, 0]) & (L - 1 < col[:, 0] + cols),
                               L - 1 - col[:, 0], -1)
                 if r == 0:
@@ -190,50 +216,55 @@ def _long_model(q, t, tlen, m32, mode, go, ge, *, lanes, cols, warps, ring, row_
                     f = np.full((lanes, cols), NEG, np.int64)
                 else:
                     h, f = (x.copy() for x in scratch[s])
-                corner = [0]
+                edge_h = {}
 
                 def left_edge(i):
-                    nonlocal cseq
+                    nonlocal avail
                     if not left:
                         b0 = 0 if free_left else -(go + (r0 + i) * ge)
                         return b0 - go, b0
                     n = cseq + i
-                    yield lambda: prod[w] >= n + 1
-                    e_in, h_in = bufs[w][n % caps[w]]
-                    if (i + 1) % release == 0 or i == rows - 1:
-                        cons[w] = n + 1
-                    if i == rows - 1 - corner_shift:
-                        corner[0] = h_in
-                    return e_in, h_in
+                    if n >= avail:
+                        yield lambda: me["filled"][w] >= n + 1
+                        avail = me["filled"][w]
+                    v = in_ring[n % in_cap]
+                    if shifted:
+                        v = in_ring[(n - 1) % in_cap] if i > 0 else v
+                    if (i + 1) % rel == 0 or i == rows - 1:
+                        smem[p_rank]["freed"][p_warp] = n + 1
+                    edge_h[i] = v[1]
+                    return v
 
-                diag = np.zeros(lanes, np.int64)
+                def code(i):
+                    return q[r0 + np.clip(i, 0, rows - 1)] & 31
+
+                diag = _shfl_up(h[:, -1].copy())
+                hl, e = diag.copy(), np.zeros(lanes, np.int64)
+                le = yield from left_edge(0)
                 if not left:
                     diag[0] = 0 if (r0 == 0 or free_left) else -(go + (r0 - 1) * ge)
                 elif r0 == 0:
                     diag[0] = 0 if free_top else -(go + (col[0, 0] - 1) * ge)
                 else:
                     diag[0] = corners[s]
-                e = np.zeros(lanes, np.int64)
-                hl = _shfl_up(h[:, -1].copy())
-                e[0], hl[0] = yield from left_edge(0)
+                e[0], hl[0] = le
+                sw = prof[code(-lane), lane]
+                qn = code(1 - lane)
                 for st in range(rows + lanes - 1):
                     yield None
-                    # lane 0's next left edge, fetched before the cells
-                    if st + 1 < rows:
-                        e0, h0 = yield from left_edge(st + 1)
                     i = st - lane
+                    if st + 1 < rows:
+                        le = yield from left_edge(st + 1)
+                    # the next row's scores, and the code of the row after it
+                    sw_next = prof[qn, lane]
+                    qn = code(i + 2)
                     act = (i >= 0) & (i < rows)
-                    if right and act[-1]:
-                        n = pseq + i[-1]
-                        yield lambda n=n: n - cons[nxt] < caps[nxt]
-                    qc = q[r0 + np.clip(i, 0, rows - 1)] & 31
                     d, ee, gl = diag.copy(), e.copy(), np.zeros(lanes, np.int64)
                     for k in range(cols):
                         if k > 0:
                             ee = np.maximum(ee - ge, gl - go)
-                        sc = prof[qc, lane, k]
                         fk = np.maximum(h[:, k] - go, f[:, k] - ge)
-                        g = np.maximum(d + sc, fk)
+                        g = np.maximum(d + sw[:, k], fk)
                         if mode == "SW":
                             g = np.maximum(g, 0)
                         hk = np.maximum(g, ee)
@@ -247,15 +278,22 @@ def _long_model(q, t, tlen, m32, mode, go, ge, *, lanes, cols, warps, ring, row_
                     if mode == "OV":
                         for ln in np.flatnonzero(act & (kl >= 0)):
                             acc = max(acc, int(h[ln, kl[ln]]))
-                    if right and act[-1]:
-                        bufs[nxt][n % caps[nxt]] = (int(eo[-1]), int(h[-1, -1]))
-                        if (i[-1] + 1) % publish == 0 or i[-1] == rows - 1:
-                            prod[nxt] = n + 1
+                    # the last lane's row st - (lanes - 1) to the next strip
+                    io = st - (lanes - 1)
+                    if right and 0 <= io < rows:
+                        n = pseq + io
+                        if n - room >= out_cap:
+                            yield lambda n=n: me["freed"][w] >= n - out_cap + 1
+                            room = me["freed"][w]
+                        out_ring[n % out_cap] = (int(eo[-1]), int(h[-1, -1]))
+                        if (io + 1) % pub == 0 or io == rows - 1:
+                            dst["filled"][c_warp] = n + 1
                     diag = hl.copy()
                     e = _shfl_up(eo)
                     hl = _shfl_up(h[:, -1].copy())
                     if st + 1 < rows:
-                        e[0], hl[0] = e0, h0
+                        e[0], hl[0] = le
+                    sw = sw_next
                 if left:
                     cseq += rows
                 if right:
@@ -263,52 +301,82 @@ def _long_model(q, t, tlen, m32, mode, go, ge, *, lanes, cols, warps, ring, row_
                 if r < R - 1:
                     scratch[s] = (h.copy(), f.copy())
                     if left:
-                        corners[s] = corner[0]
+                        corners[s] = edge_h[rows - 1 - corner_shift]
                 elif mode == "NW":
                     for ln in np.flatnonzero(kl >= 0):
-                        result["NW"] = int(h[ln, kl[ln]])
+                        result["out"] = int(h[ln, kl[ln]])
                 elif mode in ("HW", "OV"):
                     acc = max(acc, int(np.where(col < L, h, NEG).max()))
-        result[w] = best if mode == "SW" else acc
+        if mode != "NW":
+            me["red"][w] = best if mode == "SW" else acc
+            barrier["block"][rank] += 1
+            yield lambda: barrier["block"][rank] == warps
+            if w == 0:
+                smem[0]["cred"][rank] = max(me["red"])
+        barrier["end"] += 1
+        yield lambda: barrier["end"] == P
+        if mode != "NW" and rank == 0 and w == 0:
+            v = max(smem[0]["cred"])
+            result["out"] = max(v, 0) if mode == "OV" else v
 
-    progs = [warp_prog(w) for w in range(warps)]
-    waits = [None] * warps
-    live = set(range(warps))
+    progs = [warp_prog(r, w) for r in range(cluster) for w in range(warps)]
+    waits = [None] * len(progs)
+    live = set(range(len(progs)))
     while live:
         moved = False
-        for w in sorted(live):
-            if waits[w] is not None and not waits[w]():
+        for i in sorted(live):
+            if waits[i] is not None and not waits[i]():
                 continue
             try:
-                waits[w] = next(progs[w])
+                waits[i] = next(progs[i])
             except StopIteration:
-                live.discard(w)
+                live.discard(i)
             moved = True
         if not moved:
             raise RuntimeError("deadlock: every warp waits")
-    if mode == "NW":
-        return result["NW"]
-    v = max(result[w] for w in range(warps))
-    return max(v, 0) if mode == "OV" else v
+    return result["out"]
 
 
-# (N, lanes, cols, warps, ring, publish, release, row_tile, qlen, lengths):
-# strips that fit the block (one tile) and strips in turn (tiles, the wrap
-# ring), a last strip cut by N, rings at their smallest deadlock-free size,
-# counts published every row and in batches, lengths on lane, strip and N
-# edges
+# (N, lanes, cols, warps, ring, publish, release, row_tile, qlen, lengths,
+# cluster, remote publish and release): strips that fit the cluster (one
+# tile) and strips in turn (tiles, the wrap ring), a last strip cut by N,
+# rings of one row and at their smallest deadlock-free size, counts
+# published every row and in batches (other batches between blocks),
+# clusters of one to four blocks (every ring between blocks at one warp a
+# block, idle blocks past a short target), queries of 0, 1, odd and even
+# lengths, target lengths on lane, strip and N edges
 SCHEDULE_CASES = [
-    (64, 4, 2, 8, 3, 2, 2, 5, 13, (64, 1, 0, 7, 8, 9, 33, 57)),
-    (64, 4, 2, 3, 4, 2, 3, 5, 13, (64, 63, 8, 16, 17, 24, 25, 41)),
-    (60, 4, 2, 2, 1, 1, 1, 4, 11, (60, 59, 2, 9, 31, 32, 47, 48)),
-    (48, 4, 2, 1, 2, 1, 2, 3, 10, (48, 17, 1, 8, 24, 40, 0, 39)),
-    (40, 2, 4, 4, 2, 2, 1, 6, 1, (40, 3, 8, 9, 16, 17, 25, 39)),
-    (56, 4, 2, 3, 11, 4, 8, 7, 32, (56, 15, 16, 23, 24, 49, 50, 8)),
+    (64, 4, 2, 8, 3, 2, 2, 5, 13, (64, 1, 0, 7, 8, 9, 33, 57), 1, (2, 2)),
+    (64, 4, 2, 3, 4, 2, 3, 5, 13, (64, 63, 8, 16, 17, 24, 25, 41), 1, (2, 3)),
+    (60, 4, 2, 2, 1, 1, 1, 4, 11, (60, 59, 2, 9, 31, 32, 47, 48), 1, (1, 1)),
+    (48, 4, 2, 1, 2, 1, 2, 3, 10, (48, 17, 1, 8, 24, 40, 0, 39), 1, (1, 2)),
+    (40, 2, 4, 4, 2, 2, 1, 6, 1, (40, 3, 8, 9, 16, 17, 25, 39), 1, (2, 1)),
+    (56, 4, 2, 3, 11, 4, 8, 7, 32, (56, 15, 16, 23, 24, 49, 50, 8), 1, (4, 8)),
+    (64, 4, 2, 2, 3, 2, 2, 6, 13, (64, 1, 0, 7, 8, 9, 33, 57), 2, (2, 2)),
+    (64, 4, 2, 4, 1, 1, 1, 4, 14, (64, 63, 8, 16, 17, 24, 25, 41), 4, (1, 1)),
+    (60, 4, 2, 1, 5, 1, 1, 4, 11, (60, 59, 2, 9, 31, 32, 47, 48), 3, (2, 4)),
+    (48, 4, 2, 2, 2, 1, 2, 4, 1, (48, 17, 1, 8, 24, 40, 0, 39), 2, (2, 1)),
+    (40, 2, 4, 3, 2, 2, 1, 6, 0, (40, 3, 8, 9, 16, 17, 25, 39), 2, (1, 2)),
+    (56, 4, 2, 3, 11, 4, 8, 8, 32, (56, 15, 16, 23, 24, 49, 50, 8), 4, (8, 4)),
+    (72, 4, 2, 1, 12, 2, 1, 5, 23, (72, 71, 65, 64, 33, 7, 40, 57), 4, (8, 4)),
 ]
+GAPS = ((10, 1), (11, 2), (1, 3))
+
+
+def _case_id(c):
+    """N, strip width, warps (and blocks past one), ring, row tile."""
+    shape = f"w{c[3]}" if c[10] == 1 else f"c{c[10]}w{c[3]}"
+    return f"N{c[0]}-W{c[1] * c[2]}-{shape}-ring{c[4]}-tile{c[7]}"
+
+
+def _model_kw(case):
+    N, lanes, cols, warps, ring, publish, release, row_tile, qlen, lens, cluster, remote = case
+    return dict(lanes=lanes, cols=cols, warps=warps, ring=ring, row_tile=row_tile,
+                publish=publish, release=release, remote=remote, cluster=cluster)
 
 
 def _schedule_inputs(case, seed):
-    N, lanes, cols, warps, ring, publish, release, row_tile, qlen, lens = case
+    N, lens, qlen = case[0], case[9], case[8]
     rng = np.random.default_rng(seed)
     m32 = _matrix(rng)
     q = rng.integers(0, 26, qlen)
@@ -319,39 +387,39 @@ def _schedule_inputs(case, seed):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("case", SCHEDULE_CASES,
-                         ids=[f"N{c[0]}-W{c[1] * c[2]}-w{c[3]}-ring{c[4]}-tile{c[7]}"
-                              for c in SCHEDULE_CASES])
+@pytest.mark.parametrize("case", SCHEDULE_CASES, ids=[_case_id(c) for c in SCHEDULE_CASES])
 def test_schedule_transcription_matches_serial_gotoh(mode, case):
-    N, lanes, cols, warps, ring, publish, release, row_tile, qlen, lens = case
-    q, t, lens, m32 = _schedule_inputs(case, SCHEDULE_CASES.index(case))
-    gaps = (11, 2) if SCHEDULE_CASES.index(case) % 2 else (10, 1)
+    idx = SCHEDULE_CASES.index(case)
+    q, t, lens, m32 = _schedule_inputs(case, idx)
+    gaps = GAPS[idx % len(GAPS)]
     scorer = SimpleNamespace(matrix=np.clip(m32[:26, :26], -128, 127), gap_open=gaps[0],
                              gap_extend=gaps[1])
     for b, ln in enumerate(lens):
-        got = _long_model(q, t[b], ln, m32, mode, *gaps, lanes=lanes, cols=cols,
-                          warps=warps, ring=ring, row_tile=row_tile, publish=publish,
-                          release=release)
+        got = _long_model(q, t[b], ln, m32, mode, *gaps, **_model_kw(case))
         tb = t[b, :ln].astype(np.int64)
         assert got == _gotoh(q, tb, m32, mode, *gaps), (b, ln)
-        if ln and mode != "HW":   # dp_numpy's HW row includes the boundary column
+        if ln and len(q) and mode != "HW":   # dp_numpy's HW row includes the boundary column
             assert got == dp_numpy.score_pair(q, tb, scorer, mode), (b, ln)
 
 
-def test_schedule_transcription_matches_plain_and_pallas():
-    """The transcription at strips in turn, the plain version and the
-    Pallas kernel on one launch's targets, gaps with go < ge."""
-    N, lanes, cols, warps, ring, publish, release, row_tile, qlen, lens = SCHEDULE_CASES[1]
-    q, t, lens, m32 = _schedule_inputs(SCHEDULE_CASES[1], 99)
+@pytest.mark.parametrize("idx", [1, 6, 12], ids=["one-block", "c2-in-turn", "c4-in-turn"])
+def test_schedule_transcription_matches_plain_and_pallas(idx):
+    """The transcription at strips in turn (in one block, over a cluster of
+    two and of four one-warp blocks), the plain version and the Pallas
+    kernel on one launch's targets, gaps with go < ge."""
+    case = SCHEDULE_CASES[idx]
+    N, qlen = case[0], case[8]
+    q, t, lens, m32 = _schedule_inputs(case, 99 + idx)
     args = (q.astype(np.int32), np.zeros(1, np.int32), np.array([qlen], np.int32), t[None],
             np.asarray(lens, np.int32)[None])
+    n_chunk = 8 if N % 32 else 32
     for mode in MODES:
         with pltpu.force_tpu_interpret_mode():
             want = np.asarray(sw_scores_pallas_grouped_long(
-                *args, m32, mode=mode, gap_open=1, gap_extend=3, n_chunk=32, m_cap=qlen))[0]
-        plain = _k2(args, m32, mode, 1, 3, n_chunk=32, m_cap=qlen)[0]
-        got = [_long_model(q, t[b], ln, m32, mode, 1, 3, lanes=lanes, cols=cols, warps=warps,
-                           ring=ring, row_tile=row_tile, publish=publish, release=release)
+                *args, m32, mode=mode, gap_open=1, gap_extend=3, n_chunk=n_chunk,
+                m_cap=qlen))[0]
+        plain = _k2(args, m32, mode, 1, 3, n_chunk=n_chunk, m_cap=qlen)[0]
+        got = [_long_model(q, t[b], ln, m32, mode, 1, 3, **_model_kw(case))
                for b, ln in enumerate(lens)]
         np.testing.assert_array_equal(plain, want)
         np.testing.assert_array_equal(got, want)
@@ -361,28 +429,111 @@ def test_schedule_transcription_fails_with_the_corner_of_the_wrong_row():
     """The corner H (above-left of a strip's first column on a tile's first
     row) is the left strip's H of the tile's last row; one row earlier
     changes these scores, so the cases above hold it."""
-    N, lanes, cols, warps, ring, publish, release, row_tile, qlen, lens = SCHEDULE_CASES[1]
-    q, t, lens, m32 = _schedule_inputs(SCHEDULE_CASES[1], 1)
+    case = SCHEDULE_CASES[1]
+    q, t, lens, m32 = _schedule_inputs(case, 1)
     wrong = 0
     for mode in MODES:
         for b, ln in enumerate(lens):
-            kw = dict(lanes=lanes, cols=cols, warps=warps, ring=ring, row_tile=row_tile,
-                      publish=publish, release=release)
             want = _gotoh(q, t[b, :ln].astype(np.int64), m32, mode, 10, 1)
-            assert _long_model(q, t[b], ln, m32, mode, 10, 1, **kw) == want
-            wrong += _long_model(q, t[b], ln, m32, mode, 10, 1, corner_shift=1, **kw) != want
+            assert _long_model(q, t[b], ln, m32, mode, 10, 1, **_model_kw(case)) == want
+            wrong += _long_model(q, t[b], ln, m32, mode, 10, 1, corner_shift=1,
+                                 **_model_kw(case)) != want
     assert wrong > 0
 
 
-@pytest.mark.parametrize("G,B,N,warps,want", [
-    (1, 256, 8192, None, (16, 16, 256)), (1, 32, 35008, None, (69, 16, 32)),
-    (1, 4096, 3072, None, (6, 6, 4096)), (2, 3, 100, None, (1, 1, 6)),
-    (1, 32, 35008, 3, (69, 3, 32)), (2, 3, 100, 16, (1, 16, 6)),
+def test_schedule_transcription_fails_with_a_remote_edge_one_row_early():
+    """A block that reads its neighbour block's edge (E and H of the left
+    strip's last column, through distributed shared memory) one row early
+    gets other scores, so the cluster cases hold the ring's row order
+    between blocks."""
+    case = SCHEDULE_CASES[8]
+    q, t, lens, m32 = _schedule_inputs(case, 2)
+    wrong = 0
+    for mode in MODES:
+        for b, ln in enumerate(lens):
+            want = _gotoh(q, t[b, :ln].astype(np.int64), m32, mode, 11, 2)
+            assert _long_model(q, t[b], ln, m32, mode, 11, 2, **_model_kw(case)) == want
+            wrong += _long_model(q, t[b], ln, m32, mode, 11, 2, edge_shift=1,
+                                 **_model_kw(case)) != want
+    assert wrong > 0
+
+
+@pytest.mark.parametrize("G,B,N,warps,cluster,rows,want", [
+    # fewer targets than SMs, wider than 16 strips, a query of
+    # LONG_CLUSTER_ROWS or more: a cluster of 3/4 of each target's SMs, at
+    # most 8 warps a block, past that strips in balanced turns (69 strips
+    # on 8 blocks: two turns of 40 and 29, 5 warps a block); 16 strips or
+    # fewer: one block, one warp a strip
+    (1, 32, 35008, None, None, 1500, (69, 8, 3, 96)),
+    (1, 32, 8192, None, None, 1500, (16, 16, 1, 32)),
+    (1, 4, 35008, None, None, 1500, (69, 5, 8, 32)),
+    (1, 32, 16384, None, None, 360, (32, 6, 3, 96)),
+    (1, 16, 16384, None, None, 360, (32, 6, 6, 96)),
+    (1, 64, 3072, None, None, 1500, (6, 6, 1, 64)),
+    (1, 64, 8192, None, None, 1500, (16, 16, 1, 64)), (2, 3, 100, None, None, 1500, (1, 1, 1, 6)),
+    # a shorter query, or none known: one block a target
+    *((1, 32, 35008, None, None, rows, (69, 16, 1, 32))
+      for rows in (None, 0, 1, 256, sw_grouped.LONG_CLUSTER_ROWS - 1)),
+    *((1, 32, 35008, None, None, rows, (69, 8, 3, 96))
+      for rows in (sw_grouped.LONG_CLUSTER_ROWS, 360, 2048)),
+    (1, 4, 35008, None, None, None, (69, 16, 1, 4)),
+    # more targets: one block a target, one warp a strip, and from 6
+    # targets an SM 4 warps in balanced turns
+    (1, 256, 3072, None, None, 1500, (6, 6, 1, 256)),
+    (1, 256, 8192, None, None, 1500, (16, 16, 1, 256)),
+    (1, 768, 8192, None, None, 360, (16, 16, 1, 768)),
+    (1, 1024, 8192, None, None, 360, (16, 4, 1, 1024)),
+    (1, 4096, 3072, None, None, 360, (6, 3, 1, 4096)),
+    (1, 4096, 8192, None, None, 360, (16, 4, 1, 4096)),
+    (11, 256, 24576, None, None, 330, (48, 4, 1, 2816)),
+    # forced
+    (1, 32, 35008, 3, None, 1500, (69, 3, 3, 96)), (2, 3, 100, 16, None, None, (1, 16, 1, 6)),
+    (1, 32, 35008, None, 4, 360, (69, 6, 4, 128)), (1, 256, 8192, 2, 8, None, (16, 2, 8, 2048)),
 ])
-def test_long_geometry(G, B, N, warps, want):
-    """One warp a strip of 512 columns, at most 16; more strips than
-    warps run in turn; one block a target."""
-    assert sw_grouped.long_geometry(G, B, N, warps) == want
+def test_long_geometry(G, B, N, warps, cluster, rows, want):
+    """One warp a strip of 512 columns; the cluster and the warps a block
+    from the launch's targets, strips and longest query on a card of 132
+    SMs (an H100)."""
+    assert sw_grouped.long_geometry(G, B, N, 132, warps, cluster, rows=rows) == want
+
+
+@pytest.mark.parametrize("targets,want", [
+    (None, (24, 4, 1, 1280)), (1280, (24, 4, 1, 1280)), (387, (24, 16, 1, 1280)),
+    (42, (24, 6, 2, 2560)), (800, (24, 4, 1, 1280)), (700, (24, 16, 1, 1280)),
+])
+def test_long_geometry_counts_the_rows_that_hold_a_target(targets, want):
+    """A launch of 5 groups of 256 rows, of which ``targets`` hold a
+    target (the long-tail run's launches are mostly empty rows), against
+    a query of 1,500 rows: the geometry follows the targets, not the
+    rows."""
+    assert sw_grouped.long_geometry(5, 256, 12288, 132, targets=targets, rows=1500) == want
+
+
+def test_aligner_tells_k2_how_many_rows_hold_a_target(monkeypatch):
+    """The aligner passes K2 each launch's count of rows of length > 0
+    and its longest query, which it holds on the host."""
+    rng = np.random.default_rng(7)
+    items = _long_items(rng)
+    seen = []
+    real = sw_grouped.sw_scores_grouped_long
+
+    def spy(*a, **k):
+        seen.append((k.get("live_targets"), int((a[4] > 0).sum()),
+                     k.get("longest_query"), int(a[2].max())))
+        return real(*a, **k)
+
+    monkeypatch.setattr(sw_grouped, "sw_scores_grouped_long", spy)
+    al = BatchAligner(SCORER, backend="torch", b_cap=8, tail_coalesce=False)
+    al.scores_many(items)
+    assert seen and all(live == rows and longest == qmax for live, rows, longest, qmax in seen)
+
+
+@pytest.mark.parametrize("bad", [dict(warps_per_block=0), dict(warps_per_block=17),
+                                 dict(cluster=0), dict(cluster=9), dict(cluster=17),
+                                 dict(cluster=True)])
+def test_long_geometry_refuses_a_split_the_kernel_does_not_take(bad):
+    with pytest.raises(ValueError):
+        sw_grouped.long_geometry(1, 32, 35008, 132, **bad)
 
 
 # ---------------------------------------------------- (c) the aligner's route
@@ -452,23 +603,27 @@ def test_batch_split_launches_run_k2_only_at_long_rungs(monkeypatch):
 
 
 @pytest.mark.parametrize("qlen,n_targets,tlen,k2", [
-    (360, 64, 3072, True), (360, 256, 3072, True), (360, 1024, 3072, False),
-    (360, 4096, 3072, False), (360, 256, 8192, True), (360, 1024, 8192, False),
-    (1500, 256, 8192, True), (100, 2048, 4096, True),
+    (360, 64, 3072, True), (360, 256, 3072, True), (360, 1024, 3072, True),
+    (360, 4096, 3072, False), (360, 256, 8192, True), (360, 1024, 8192, True),
+    (360, 1088, 4096, True), (360, 1120, 4096, False), (1500, 256, 8192, True),
+    (1500, 768, 8192, True), (1500, 800, 8192, False), (1500, 1024, 8192, False),
+    (100, 2048, 4096, True), (100, 4096, 4096, False),
 ])
 def test_long_route_weighs_cells_against_k1s_chain(qlen, n_targets, tlen, k2):
     """K2 while a launch's cells stay under ``LONG_CELLS_PER_COLUMN`` a
     column and pass of K1's longest chain: one query against full targets,
-    on both sides of the crossover that phase 3b of ``chip_smoke.py``
-    measured at 360 rows (K2 won at 64 and 256 targets, K1 at 1,024 and
-    4,096, at every rung from 3,072 to 8,192)."""
+    on both sides of the crossover (1,092 full targets at 360 rows, 786 at
+    1,500 rows, where K1 takes three passes), which the constant puts
+    between the grid points of ``chip_smoke.py`` phase 3b: K2 won at 64
+    and 256 targets, K1 at 4,096, and at 1,024 the two were within a few
+    per cent of each other (K2 ahead at 360 rows)."""
     from sift4g_tpu_torch.align.batch import _long_route
 
     assert _long_route([(qlen, np.full(n_targets, tlen))]) is k2
 
 
 def test_aligner_sends_a_wide_long_launch_to_k1(monkeypatch):
-    """One query with 1,000 candidates at the 3,072 rung: a launch with
+    """One query with 1,200 candidates at the 3,072 rung: a launch with
     more cells than K1's chain is worth runs K1, not K2 (the scorers are
     stubs here: the route is under test, not the scores)."""
     calls = {"K1": [], "K2": []}
@@ -479,7 +634,7 @@ def test_aligner_sends_a_wide_long_launch_to_k1(monkeypatch):
 
         monkeypatch.setattr(sw_grouped, name, stub)
     q = np.zeros(360, np.uint8)
-    wide = [(q, [np.zeros(2900, np.uint8)] * 1000)]
+    wide = [(q, [np.zeros(2900, np.uint8)] * 1200)]
     BatchAligner(SCORER, backend="torch").scores_many(wide)
     assert calls == {"K1": [3072], "K2": []}
     BatchAligner(SCORER, backend="torch").scores_many([(q, wide[0][1][:200])])
@@ -588,7 +743,7 @@ def test_factories_score_with_k2(monkeypatch):
 # ------------------------------------------------------ (d) argument checks
 
 
-@pytest.mark.parametrize("bad", ["m_cap", "n_chunk", "mode", "warps"])
+@pytest.mark.parametrize("bad", ["m_cap", "n_chunk", "mode", "warps", "cluster"])
 def test_wrapper_refuses_before_any_work(bad, monkeypatch):
     rng = np.random.default_rng(10)
     args = _slab(rng, 1, 2, 128, (128, 5), (40,), 48)
@@ -600,7 +755,8 @@ def test_wrapper_refuses_before_any_work(bad, monkeypatch):
     monkeypatch.setattr(scan, "align_scores_grouped", no_work)
     kw = dict(mode="SW", n_chunk=64, m_cap=48)
     kw.update({"m_cap": dict(m_cap=39), "n_chunk": dict(n_chunk=96),
-               "mode": dict(mode="XW"), "warps": dict(warps_per_target=17)}[bad])
+               "mode": dict(mode="XW"), "warps": dict(warps_per_block=17),
+               "cluster": dict(cluster=9)}[bad])
     mode = kw.pop("mode")
     with pytest.raises(ValueError):
         _k2(args, m32, mode, 10, 1, **kw)
