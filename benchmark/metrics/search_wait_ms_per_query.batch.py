@@ -1,0 +1,18 @@
+"""The search layer's waits: the program's ``search.wait`` span, where the
+overlapped schedule (pipeline._run_overlapped) blocks the scan on the
+provisional scoring's resolves, over the jobs' queries.
+
+None without a card (``run.card``): the benchmark's CPU test pins the set of
+metrics a traced run on the CPU reports, and that test belongs to the
+benchmark, so a reader added beside it stays silent there.  None too where
+no finished job holds the span or counters (a program without them)."""
+
+from benchmark.metrics import ok_jobs, per_query_ms, phase_s
+
+SPAN = "search.wait"
+
+
+def read(run):
+    if run.card is None or not any(SPAN in j["phases"] for j in ok_jobs(run)):
+        return None
+    return per_query_ms(run, lambda j: phase_s(j, SPAN))

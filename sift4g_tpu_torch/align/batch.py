@@ -68,6 +68,7 @@ from ..parallel.sharded import (
     make_grouped_resident_sharded,
     make_grouped_sharded,
 )
+from ..utils import PhaseMetrics
 from . import resolve_backend
 from .host import (
     PAD_CODE,
@@ -82,6 +83,7 @@ from .scan import (
     decode_screen_words,
     matrix32_from_scorer,
 )
+from .sw_grouped import grid_cells
 
 # the screen packs the row index into 12 bits (align/scan.py)
 MAX_BATCH = SCREEN_ROW_MASK + 1
@@ -165,6 +167,7 @@ class BatchAligner:
         threads: int = 0,
         resident=None,
         cards=None,
+        metrics=None,
     ):
         if devices is None:
             backend, devices = resolve_backend(backend, cards)
@@ -203,6 +206,8 @@ class BatchAligner:
         # device-resident database (align/resident.ResidentDB) or None
         self.resident = resident
         self._matrix32 = {}    # device -> (32, 32) int32 matrix there
+        # spans and counters of each launch (a PhaseMetrics)
+        self.metrics = metrics if metrics is not None else PhaseMetrics(enabled=False)
 
     def _b_for(self, n_pad: int) -> int:
         """Batch width of a full group at rung ``n_pad``."""
@@ -387,15 +392,29 @@ class BatchAligner:
         return [(d, 0, G, b0, b1) for d, (b0, b1) in zip(self.devices, _split(B, n))]
 
     def _launch(self, items, part, n_pad, B, scr_k, smins, native_lib):
-        """Pack one launch's groups into host buffers, one segment per
-        device of its split, queue each segment's copy to its device, the
-        kernels and the screens; returns (shards, part, k).  The host
-        buffers, held by the shards, must live until the fetch: the copies
-        from them are asynchronous."""
-        G = len(part)
+        """One launch of ``part``'s groups on K1, K2 or K3 (:meth:`_enqueue`),
+        timed as the span ``align.launch.k1`` (``.k2``, ``.k3``), which
+        counts its ``launches`` and the ``cells`` and ``launched_cells``
+        that :meth:`_enqueue` counts."""
         on_k2 = n_pad >= LONG_RUNG and _long_route(
             (items[i][0].shape[0], _target_lens(items[i][1], idx)) for i, idx in part)
         resident = not on_k2 and self._part_resident(items, part)
+        span = "align.launch." + ("k2" if on_k2 else "k3" if resident else "k1")
+        with self.metrics.phase(span):
+            launch, cells, launched = self._enqueue(
+                items, part, n_pad, B, scr_k, smins, native_lib, on_k2, resident)
+        self.metrics.add(span, launches=1.0, cells=float(cells), launched_cells=float(launched))
+        return launch
+
+    def _enqueue(self, items, part, n_pad, B, scr_k, smins, native_lib, on_k2, resident):
+        """Pack one launch's groups into host buffers, one segment per
+        device of its split, queue each segment's copy to its device, the
+        kernels and the screens; returns (shards, part, k), the launch's
+        true cells (each group's query length times its targets' lengths)
+        and the cells its grids cover (``sw_grouped.grid_cells``), both
+        from the lengths packed.  The host buffers, held by the shards,
+        must live until the fetch: the copies from them are asynchronous."""
+        G = len(part)
         plan = self._plan(G, B)
         batch_split = G < len(self.devices)
         k_eff = min(B, scr_k) if smins is not None and not batch_split else 0
@@ -460,6 +479,12 @@ class BatchAligner:
                         tg[lg, r, : t.shape[0]] = t
                         tl[lg, r] = t.shape[0]
 
+        kernel = "long" if on_k2 else "resident" if resident else "grouped"
+        cells = launched = 0
+        for sh, (tl, _, qlen, _, _) in zip(shards, views):
+            cells += int(qlen.astype(np.int64) @ tl.sum(axis=1, dtype=np.int64))
+            launched += grid_cells(kernel, qlen, tl.shape[1], n_pad, sh.device)
+
         mesh = [sh.device for sh in shards]
         q_l, go_l, gl_l, sm_l, tg_l, tl_l = [], [], [], [], [], []
         for sh, (tl, _, _, _, tg) in zip(shards, views):
@@ -498,7 +523,7 @@ class BatchAligner:
         for sh, res in zip(shards, results):
             sh.result = res
         self.launches += 1
-        return shards, part, k_eff
+        return (shards, part, k_eff), cells, launched
 
 
 class _Shard:

@@ -14,10 +14,14 @@ from typing import Sequence
 import numpy as np
 
 from ..core.scorers import Scorer
+from ..utils import PhaseMetrics
 
 PAD_CODE = 31
 
 _MODE_IDS = {"SW": 0, "NW": 1, "HW": 2, "OV": 3}
+# the C++ aligner's counters, in the order of its out_stats array (enum
+# AlignStat of native/aligner.cpp)
+ALIGN_STATS = ("striped_cells", "scalar_cells", "striped_thread_s", "scalar_thread_s", "threads")
 
 
 class PackedTargets:
@@ -91,6 +95,7 @@ def align_pairs_batch(
     scorer: Scorer,
     mode: str = "SW",
     threads: int = 0,
+    metrics=None,
 ):
     """Score + traceback for one query vs many targets.
 
@@ -98,6 +103,15 @@ def align_pairs_batch(
     else the NumPy oracle per pair.  ``threads`` mirrors the reference's
     -t (main.cpp:188 feeds its pool size everywhere); 0 = hardware
     concurrency.  Returns a list of AlignmentRecord.
+
+    ``metrics`` (a ``PhaseMetrics``) times the native path's spans
+    ``align.traceback.pack`` (the targets' concatenation),
+    ``align.traceback.native`` (the C++ call) and
+    ``align.traceback.records``, and counts on ``align.traceback.native``
+    its ``calls``, ``pairs`` and ``cells`` and the C++ aligner's
+    ``ALIGN_STATS``: which path took each pair's cells, the seconds the
+    worker threads spent in each, and the threads used.  Without
+    ``metrics`` the C++ aligner gets no stats array and reads no clock.
     """
     from ..native import load as _load_native
     from .dp_numpy import align_pair
@@ -111,57 +125,70 @@ def align_pairs_batch(
 
     import ctypes
 
+    stats = None
+    if metrics is None:
+        metrics = PhaseMetrics(enabled=False)
+    else:
+        stats = np.zeros(len(ALIGN_STATS), dtype=np.float64)
     n = len(targets)
-    q = np.ascontiguousarray(query_codes, dtype=np.uint8)
-    offsets = np.zeros(n + 1, dtype=np.int64)
-    for i, t in enumerate(targets):
-        offsets[i + 1] = offsets[i] + t.shape[0]
-    concat = np.empty(int(offsets[-1]), dtype=np.uint8)
-    for i, t in enumerate(targets):
-        concat[offsets[i] : offsets[i + 1]] = t
-    matrix26 = np.ascontiguousarray(scorer.matrix, dtype=np.int32)
+    with metrics.phase("align.traceback.pack"):
+        q = np.ascontiguousarray(query_codes, dtype=np.uint8)
+        offsets = np.zeros(n + 1, dtype=np.int64)
+        for i, t in enumerate(targets):
+            offsets[i + 1] = offsets[i] + t.shape[0]
+        concat = np.empty(int(offsets[-1]), dtype=np.uint8)
+        for i, t in enumerate(targets):
+            concat[offsets[i] : offsets[i + 1]] = t
+        matrix26 = np.ascontiguousarray(scorer.matrix, dtype=np.int32)
 
-    score = np.empty(n, dtype=np.int32)
-    qs = np.empty(n, dtype=np.int32)
-    qe = np.empty(n, dtype=np.int32)
-    ts = np.empty(n, dtype=np.int32)
-    te = np.empty(n, dtype=np.int32)
-    cap = int(offsets[-1]) + n * (q.shape[0] + 1)
-    moves_buf = np.empty(cap, dtype=np.uint8)
-    moves_off = np.empty(n + 1, dtype=np.int64)
+        score = np.empty(n, dtype=np.int32)
+        qs = np.empty(n, dtype=np.int32)
+        qe = np.empty(n, dtype=np.int32)
+        ts = np.empty(n, dtype=np.int32)
+        te = np.empty(n, dtype=np.int32)
+        cap = int(offsets[-1]) + n * (q.shape[0] + 1)
+        moves_buf = np.empty(cap, dtype=np.uint8)
+        moves_off = np.empty(n + 1, dtype=np.int64)
 
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i32p = ctypes.POINTER(ctypes.c_int32)
     i64p = ctypes.POINTER(ctypes.c_int64)
-    rc = lib.sift4g_align_batch(
-        q.ctypes.data_as(u8p), q.shape[0],
-        concat.ctypes.data_as(u8p), offsets.ctypes.data_as(i64p), n,
-        matrix26.ctypes.data_as(i32p),
-        scorer.gap_open, scorer.gap_extend, _MODE_IDS[mode],
-        max(int(threads), 0),
-        score.ctypes.data_as(i32p), qs.ctypes.data_as(i32p),
-        qe.ctypes.data_as(i32p), ts.ctypes.data_as(i32p),
-        te.ctypes.data_as(i32p),
-        moves_buf.ctypes.data_as(u8p), cap,
-        moves_off.ctypes.data_as(i64p),
-    )
+    with metrics.phase("align.traceback.native"):
+        rc = lib.sift4g_align_batch(
+            q.ctypes.data_as(u8p), q.shape[0],
+            concat.ctypes.data_as(u8p), offsets.ctypes.data_as(i64p), n,
+            matrix26.ctypes.data_as(i32p),
+            scorer.gap_open, scorer.gap_extend, _MODE_IDS[mode],
+            max(int(threads), 0),
+            score.ctypes.data_as(i32p), qs.ctypes.data_as(i32p),
+            qe.ctypes.data_as(i32p), ts.ctypes.data_as(i32p),
+            te.ctypes.data_as(i32p),
+            moves_buf.ctypes.data_as(u8p), cap,
+            moves_off.ctypes.data_as(i64p),
+            None if stats is None else stats.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        )
+    if stats is not None:
+        metrics.add("align.traceback.native", calls=1.0, pairs=float(n),
+                    cells=float(q.shape[0]) * float(offsets[-1]),
+                    **{k: float(v) for k, v in zip(ALIGN_STATS, stats)})
     if rc != 0:  # moves overflow cannot happen with cap = sum(n_i) + n*(m+1)
         return [align_pair(query_codes, t, scorer, mode) for t in targets]
 
-    out = []
-    for i, t in enumerate(targets):
-        out.append(
-            AlignmentRecord(
-                score=int(score[i]),
-                query_start=int(qs[i]),
-                query_end=int(qe[i]),
-                target_start=int(ts[i]),
-                target_end=int(te[i]),
-                moves=moves_buf[moves_off[i] : moves_off[i + 1]].copy(),
-                query_codes=query_codes,
-                target_codes=t,
+    with metrics.phase("align.traceback.records"):
+        out = []
+        for i, t in enumerate(targets):
+            out.append(
+                AlignmentRecord(
+                    score=int(score[i]),
+                    query_start=int(qs[i]),
+                    query_end=int(qe[i]),
+                    target_start=int(ts[i]),
+                    target_end=int(te[i]),
+                    moves=moves_buf[moves_off[i] : moves_off[i + 1]].copy(),
+                    query_codes=query_codes,
+                    target_codes=t,
+                )
             )
-        )
     return out
 
 

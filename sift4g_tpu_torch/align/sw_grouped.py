@@ -21,7 +21,8 @@ T threads score a pair of targets in int16 halves, only where
 ``scan.i16_admissible`` proves every value fits; refused otherwise).
 ``tile_geometry`` picks T and the block from the launch's shape and the
 card's SM count (K4's launch is one group, G = 1); ``threads_per_target=``
-forces T (tests and ``chip_smoke.py`` run every value).
+forces T (tests and ``chip_smoke.py`` run every value).  ``grid_cells``
+gives the cells a launch covers, padding included.
 
 K2 runs its own body: a target's columns in strips of ``LONG_STRIP``
 columns over the warps of a thread-block cluster (up to
@@ -43,6 +44,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from . import _build, scan
@@ -157,6 +159,33 @@ def launch_geometry(G: int, B: int, N: int, device, threads_per_target=None):
     return tile_geometry(G, B, N, _sm_count(index), threads_per_target)
 
 
+def thread_groups(B: int, acc: str = "int") -> int:
+    """The thread groups a group of B targets takes in a K1, K3 or K4
+    launch: a target each, or a pair of targets under ``acc="i16"``."""
+    return (B + 1) // 2 if acc == "i16" else B
+
+
+def grid_cells(scorer: str, q_lens, B: int, N: int, device, acc: str = "int") -> int:
+    """The DP cells that a launch covers as the wrapper here launches it:
+    ``scorer`` is ``"grouped"`` (K1), ``"resident"`` (K3), ``"single"``
+    (K4) or ``"long"`` (K2), with one group a query of ``q_lens``, each
+    against B target slots of an N-wide rung, on ``device``.  K1, K3 and
+    K4 on a card run a query in whole passes of ``TILE_ROWS`` rows a
+    thread of the T that :func:`launch_geometry` picks, over every slot of
+    their :func:`thread_groups`; K2 streams a query's rows as they are over
+    its strips, which tile N; the plain versions take the rows as they
+    are."""
+    q = np.asarray(q_lens, dtype=np.int64)
+    rows, slots = q, B
+    if torch.device(device).type == "cuda" and scorer != "long":
+        width = thread_groups(B, acc)
+        T, _ = launch_geometry(q.size, width, N, device)
+        step = TILE_ROWS * T
+        rows = -(-q // step) * step
+        slots = width * (2 if acc == "i16" else 1)
+    return int(rows.sum()) * slots * N
+
+
 def sw_scores_grouped(
     q_codes_all: torch.Tensor,   # (Qm,) int32 concatenated queries
     q_offsets: torch.Tensor,     # (G,) int32
@@ -205,8 +234,7 @@ def sw_scores_grouped(
     if G > 65535:
         raise ValueError(f"{G} groups exceed the launch grid (65535)")
 
-    # the launch's thread groups: a target each, or a pair under int16
-    width = (B + 1) // 2 if acc == "i16" else B
+    width = thread_groups(B, acc)
     T, block = launch_geometry(G, width, N, dev, threads_per_target)
     lib = _build.load()
     out = torch.empty((G, B), dtype=torch.int32, device=dev)

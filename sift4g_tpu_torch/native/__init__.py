@@ -41,6 +41,7 @@ c_i32 = ctypes.c_int32
 c_u8_p = ctypes.POINTER(ctypes.c_uint8)
 c_i64_p = ctypes.POINTER(ctypes.c_int64)
 c_i32_p = ctypes.POINTER(ctypes.c_int32)
+c_f64_p = ctypes.POINTER(ctypes.c_double)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -108,6 +109,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         c_i32_p, c_i32, c_i32, c_i32, c_i32,      # matrix26, go, ge, mode, threads
         c_i32_p, c_i32_p, c_i32_p, c_i32_p, c_i32_p,  # score, qs, qe, ts, te
         c_u8_p, c_i64, c_i64_p,                   # moves_buf, cap, moves_off
+        c_f64_p,                                  # stats (ALIGN_STATS) or null
     ]
     lib.sift4g_score_batch.restype = None
     lib.sift4g_score_batch.argtypes = [

@@ -14,9 +14,11 @@
 
 #include <algorithm>
 #include <atomic>
+#include <chrono>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -370,7 +372,15 @@ void sift4g_score_batch(const uint8_t* q, int32_t qlen, const uint8_t* base,
 // Align one query against n_targets targets (concatenated codes + offsets).
 // Outputs: per-target score/starts/ends; edit paths concatenated into
 // moves_buf (caller-sized to sum(m + n_i)) with moves_off (n_targets + 1).
-// Returns 0 on success, -1 if moves_buf would overflow.
+// out_stats, when not null, receives ALIGN_STATS doubles: the cells (query
+// length x target length) of the pairs the striped int16 path took and of
+// those the scalar int32 path took, the seconds the worker threads spent
+// in each path (a steady_clock pair around each pair's fill and
+// traceback, summed over the pairs), and the threads used.  Null reads no
+// clock.  Returns 0 on success, -1 if moves_buf would overflow.
+enum AlignStat { STRIPED_CELLS, SCALAR_CELLS, STRIPED_THREAD_S, SCALAR_THREAD_S, THREADS,
+                 ALIGN_STATS };
+
 int sift4g_align_batch(const uint8_t* q, int32_t qlen, const uint8_t* targets,
                        const int64_t* offsets, int32_t n_targets,
                        const int32_t* matrix26 /* 26x26 row-major */,
@@ -379,7 +389,7 @@ int sift4g_align_batch(const uint8_t* q, int32_t qlen, const uint8_t* targets,
                        int32_t* out_qstart, int32_t* out_qend,
                        int32_t* out_tstart, int32_t* out_tend,
                        uint8_t* moves_buf, int64_t moves_cap,
-                       int64_t* moves_off) {
+                       int64_t* moves_off, double* out_stats) {
   std::vector<AlignResult> results(n_targets);
   unsigned hw = std::thread::hardware_concurrency();
   int nt = n_threads > 0 ? n_threads : (hw ? static_cast<int>(hw) : 4);
@@ -399,21 +409,40 @@ int sift4g_align_batch(const uint8_t* q, int32_t qlen, const uint8_t* targets,
   if (striped_ok) sift4g_simd::build_profile16(q, qlen, matrix26, &prof);
 
   std::atomic<int32_t> next{0};
+  std::mutex stats_mu;
+  if (out_stats != nullptr) {
+    std::fill(out_stats, out_stats + ALIGN_STATS, 0.0);
+    out_stats[THREADS] = nt;
+  }
   auto worker = [&]() {
     DpBuffers buf;
+    double mine[ALIGN_STATS] = {0.0};
     for (;;) {
       int32_t idx = next.fetch_add(1);
-      if (idx >= n_targets) return;
+      if (idx >= n_targets) break;
       const uint8_t* t = targets + offsets[idx];
       int n = static_cast<int>(offsets[idx + 1] - offsets[idx]);
-      if (striped_ok && n > 0 &&
-          static_cast<int64_t>(std::min<int32_t>(qlen, n)) * matmax < 30000) {
+      std::chrono::steady_clock::time_point t0;
+      if (out_stats != nullptr) t0 = std::chrono::steady_clock::now();
+      const bool striped =
+          striped_ok && n > 0 &&
+          static_cast<int64_t>(std::min<int32_t>(qlen, n)) * matmax < 30000;
+      if (striped) {
         align_one_striped(prof, q, qlen, t, n, matrix26, gap_open,
                           gap_extend, &results[idx], &buf);
       } else {
         align_one(q, qlen, t, n, matrix26, gap_open, gap_extend, mode,
                   &results[idx], &buf);
       }
+      if (out_stats != nullptr) {
+        const std::chrono::duration<double> dt = std::chrono::steady_clock::now() - t0;
+        mine[striped ? STRIPED_CELLS : SCALAR_CELLS] += static_cast<double>(qlen) * n;
+        mine[striped ? STRIPED_THREAD_S : SCALAR_THREAD_S] += dt.count();
+      }
+    }
+    if (out_stats != nullptr) {
+      std::lock_guard<std::mutex> hold(stats_mu);
+      for (int k = STRIPED_CELLS; k <= SCALAR_THREAD_S; ++k) out_stats[k] += mine[k];
     }
   };
   std::vector<std::thread> threads;

@@ -219,6 +219,7 @@ def _run_db_sharded(cfg, ctx: HostContext, devices, log):
             threads=cfg.threads,
             record_range=(lo, hi),
             return_scored=True,
+            metrics=metrics,
         )
         # O(hosts x k) candidate exchange and global merge: every host
         # computes the same sets, and slices its own shard's work from them

@@ -326,7 +326,13 @@ def _run_overlapped(
 
     The scores come from slab launches (K1 on a card): an overlapped run
     never builds the resident database, as in the JAX package, whose
-    dispatch skips ``align_database`` and so its resident path."""
+    dispatch skips ``align_database`` and so its resident path.
+
+    Spans inside ``search``: ``search.snapshot``, the provisional
+    ``align.dispatch`` and ``search.wait`` (the scan blocked on the
+    resolves); inside ``align``: ``align.evalue`` and the traceback's.
+    ``align.provisional`` counts every cell scored, ``align`` those of
+    the final candidate sets, as the two-phase run counts them."""
     from concurrent.futures import ThreadPoolExecutor
 
     log = cfg.log
@@ -335,7 +341,7 @@ def _run_overlapped(
               "slabs; --overlap off keeps the resident path) *", file=log)
     aligner = BatchAligner(
         scorer, mode=cfg.algorithm, backend=cfg.align_backend, devices=devices,
-        threads=cfg.threads, cards=cfg.cards,
+        threads=cfg.threads, cards=cfg.cards, metrics=metrics,
     )
     prov: List[dict] = [dict() for _ in queries]
     # one resolve worker keeps the scan free of the fetches' waits; one
@@ -345,6 +351,7 @@ def _run_overlapped(
     resolves: List = []
 
     def _resolve_one(fetch, meta):
+        # a counter, not a span: this runs on the resolver's thread
         t0 = time.perf_counter()
         all_scores = fetch()
         metrics.add("align.fetch", seconds=time.perf_counter() - t0)
@@ -372,7 +379,8 @@ def _run_overlapped(
                 prov[qi] = {int(t): d[int(t)] for t in cur}
 
     def on_chunk(codes, offsets, names, start_idx, snapshot):
-        ids_now = snapshot()
+        with metrics.phase("search.snapshot"):
+            ids_now = snapshot()
         offs = np.asarray(offsets, dtype=np.int64)
         items, meta = [], []
         for qi, query in enumerate(queries):
@@ -385,19 +393,20 @@ def _run_overlapped(
             lens = (offs[local + 1] - starts).astype(np.int32)
             items.append((query.codes, PackedTargets(codes, starts, lens)))
             meta.append((qi, new))
-            metrics.add("align", cells=float(len(query)) * float(int(lens.sum())))
+            # every cell scored, those of candidates evicted later too
+            metrics.add("align.provisional", cells=float(len(query)) * float(int(lens.sum())))
         if items:
-            t0 = time.perf_counter()
-            fetch = aligner.scores_many_async(items)
-            metrics.add("align.dispatch", seconds=time.perf_counter() - t0)
+            with metrics.phase("align.dispatch"):
+                fetch = aligner.scores_many_async(items)
             resolves.append(resolver.submit(_resolve_one, fetch, meta))
             # tracked like the resolves, so a compaction error propagates
             resolves.append(resolver.submit(_compact, ids_now))
         # drain finished resolves (an error surfaces at the next chunk)
         # and bound the backlog: each pending resolve pins a chunk's
         # device results (two futures per chunk)
-        while resolves and (resolves[0].done() or len(resolves) > 4):
-            resolves.pop(0).result()
+        with metrics.phase("search.wait"):
+            while resolves and (resolves[0].done() or len(resolves) > 4):
+                resolves.pop(0).result()
 
     try:
         with metrics.phase("search"):
@@ -410,13 +419,19 @@ def _run_overlapped(
                 log=log,
                 threads=cfg.threads,
                 on_chunk=on_chunk,
+                metrics=metrics,
             )
-            for fut in resolves:
-                fut.result()  # fetch errors propagate; every score landed
+            with metrics.phase("search.wait"):
+                for fut in resolves:
+                    fut.result()  # fetch errors propagate; every score landed
     finally:
         resolver.shutdown(wait=True)
     metrics.add("search", db_residues=float(cells), queries=float(len(queries)),
                 overlapped=1.0)
+    # the final candidate sets' cells, as the two-phase run counts them
+    offs = cache._offsets
+    metrics.add("align", cells=float(sum(
+        len(q) * int((offs[ix + 1] - offs[ix]).sum()) for q, ix in zip(queries, indices))))
 
     evalue_params = create_evalue_params(cells, scorer, log=log)
     print("** Aligning queries with candidate sequences **", file=log)
@@ -426,19 +441,21 @@ def _run_overlapped(
             ids = indices[qi]
             if ids.size == 0:
                 continue
-            scores = np.fromiter(
-                (prov[qi][int(t)] for t in ids), dtype=np.int64, count=ids.size
-            )
-            evals = evalues(scores, len(query), evalue_params)
-            keep = np.flatnonzero(evals <= cfg.max_evalue)
-            keep = sorted(keep.tolist(), key=lambda i: (-int(scores[i]), int(ids[i])))
-            keep = keep[: cfg.max_alignments]
+            with metrics.phase("align.evalue"):
+                scores = np.fromiter(
+                    (prov[qi][int(t)] for t in ids), dtype=np.int64, count=ids.size
+                )
+                evals = evalues(scores, len(query), evalue_params)
+                keep = np.flatnonzero(evals <= cfg.max_evalue)
+                keep = sorted(keep.tolist(), key=lambda i: (-int(scores[i]), int(ids[i])))
+                keep = keep[: cfg.max_alignments]
             recs = align_pairs_batch(
                 query.codes,
                 [cache.codes_at(int(ids[i])) for i in keep],
                 scorer,
                 cfg.algorithm,
                 threads=cfg.threads,
+                metrics=metrics,
             )
             for i, rec in zip(keep, recs):
                 rec.target_idx = int(ids[i])
@@ -503,10 +520,18 @@ def align_database(
     ``resident_db``: "auto" | "on" | "off" — device-resident scoring
     (upload the slot-packed database codes once; launches ship start and
     length arrays instead of target bytes).  See ``_resident_refusal``
-    for when "auto" takes it; it has no effect under backend native."""
+    for when "auto" takes it; it has no effect under backend native.
+
+    ``metrics``: the spans ``align.dispatch`` (with the launches'
+    ``align.launch.*``), ``align.fetch`` and ``align.traceback`` (with
+    ``align.evalue`` and ``align_pairs_batch``'s ``align.traceback.*``),
+    and the candidates' cells on ``align``."""
     print("** Aligning queries with candidate sequences **", file=log)
+    if metrics is None:
+        metrics = PhaseMetrics(enabled=False)
     aligner = BatchAligner(
-        scorer, mode=mode, backend=backend, devices=devices, threads=threads, cards=cards
+        scorer, mode=mode, backend=backend, devices=devices, threads=threads, cards=cards,
+        metrics=metrics,
     )
     results: List[List[AlignmentRecord]] = [[] for _ in queries]
     remaining = [list(ix) for ix in indices]
@@ -524,7 +549,7 @@ def align_database(
         elif resident_db != "off":
             t_up = time.perf_counter()
             resident = _maybe_resident_db(fs, indices, aligner, resident_db, log, record_range)
-            if resident is not None and metrics is not None:
+            if resident is not None:
                 metrics.add("align.upload", seconds=time.perf_counter() - t_up,
                             bytes=float(resident.nbytes))
             aligner.resident = resident
@@ -561,18 +586,15 @@ def align_database(
                         targets = [store.codes(t) for t in chunk_used[qi]]
                 score_items.append((query.codes, targets))
                 active.append(qi)
-                if metrics is not None:
-                    metrics.add(
-                        "align",
-                        cells=float(len(query)) * float(_targets_total_len(targets)),
-                    )
-            t_disp = time.perf_counter()
-            fetch = aligner.scores_many_async(
-                score_items,
-                screen=([smin_all[qi] for qi in active], max_alignments),
-            )
-            if metrics is not None:
-                metrics.add("align.dispatch", seconds=time.perf_counter() - t_disp)
+                metrics.add(
+                    "align",
+                    cells=float(len(query)) * float(_targets_total_len(targets)),
+                )
+            with metrics.phase("align.dispatch"):
+                fetch = aligner.scores_many_async(
+                    score_items,
+                    screen=([smin_all[qi] for qi in active], max_alignments),
+                )
             # stream the next database part while the device scores
             next_more = more
             if more:
@@ -583,50 +605,48 @@ def align_database(
 
                 reader = threading.Thread(target=_read)
                 reader.start()
-            t_fetch = time.perf_counter()
-            all_scores = fetch()
-            if metrics is not None:
-                metrics.add("align.fetch", seconds=time.perf_counter() - t_fetch)
+            with metrics.phase("align.fetch"):
+                all_scores = fetch()
             if more:
                 reader.join()
                 next_more, codes_n, offsets_n, names_n = result["part"]
                 store.append_part(codes_n, offsets_n, names_n)
-            t_keep = time.perf_counter()
-            for qi, scores in zip(active, all_scores):
-                query = queries[qi]
-                used = chunk_used[qi]
-                smin_q = smin_all[qi]
-                if smin_q is not None and smin_q >= 1:
-                    # == the evalues() filter by construction; also right
-                    # after the screen (non-survivors come back 0 < smin_q)
-                    keep = np.flatnonzero(scores >= smin_q)
-                else:
-                    evals_full = evalues(scores, len(query), evalue_params)
-                    keep = np.flatnonzero(evals_full <= max_evalue)
-                keep = sorted(keep.tolist(), key=lambda i: (-int(scores[i]), used[i]))
-                keep = keep[:max_alignments]
-                evals_kept = evalues(
-                    scores[np.asarray(keep, dtype=np.int64)], len(query), evalue_params
-                )
-                recs = align_pairs_batch(
-                    query.codes,
-                    [store.codes(used[i]) for i in keep],
-                    scorer,
-                    mode,
-                    threads=threads,
-                )
-                for i, rec, ev in zip(keep, recs, evals_kept):
-                    rec.target_idx = used[i]
-                    rec.target_name = store.name(used[i])
-                    rec.evalue = float(ev)
-                    if not consumed_is_mmap:
-                        rec.target_codes = np.array(rec.target_codes, copy=True)
-                    results[qi].append(rec)
-                if len(results[qi]) > max_alignments:
-                    results[qi].sort(key=lambda r: (-r.score, r.target_idx))
-                    del results[qi][max_alignments:]
-            if metrics is not None:
-                metrics.add("align.traceback", seconds=time.perf_counter() - t_keep)
+            with metrics.phase("align.traceback"):
+                for qi, scores in zip(active, all_scores):
+                    query = queries[qi]
+                    used = chunk_used[qi]
+                    smin_q = smin_all[qi]
+                    with metrics.phase("align.evalue"):
+                        if smin_q is not None and smin_q >= 1:
+                            # == the evalues() filter by construction; also right
+                            # after the screen (non-survivors come back 0 < smin_q)
+                            keep = np.flatnonzero(scores >= smin_q)
+                        else:
+                            evals_full = evalues(scores, len(query), evalue_params)
+                            keep = np.flatnonzero(evals_full <= max_evalue)
+                        keep = sorted(keep.tolist(), key=lambda i: (-int(scores[i]), used[i]))
+                        keep = keep[:max_alignments]
+                        evals_kept = evalues(
+                            scores[np.asarray(keep, dtype=np.int64)], len(query), evalue_params
+                        )
+                    recs = align_pairs_batch(
+                        query.codes,
+                        [store.codes(used[i]) for i in keep],
+                        scorer,
+                        mode,
+                        threads=threads,
+                        metrics=metrics,
+                    )
+                    for i, rec, ev in zip(keep, recs, evals_kept):
+                        rec.target_idx = used[i]
+                        rec.target_name = store.name(used[i])
+                        rec.evalue = float(ev)
+                        if not consumed_is_mmap:
+                            rec.target_codes = np.array(rec.target_codes, copy=True)
+                        results[qi].append(rec)
+                    if len(results[qi]) > max_alignments:
+                        results[qi].sort(key=lambda r: (-r.score, r.target_idx))
+                        del results[qi][max_alignments:]
             store.drop_before_latest()
             if not more:
                 break
@@ -765,6 +785,7 @@ def run_pipeline(cfg: PipelineConfig, devices=None) -> List[Chain]:
             chunk_bytes=cfg.search_chunk_bytes,
             log=log,
             threads=cfg.threads,
+            metrics=metrics,
         )
     metrics.add("search", db_residues=float(cells), queries=float(len(queries)))
 

@@ -31,6 +31,7 @@ import numpy as np
 
 from ..core.chain import Chain
 from ..io.fasta import FastaStream
+from ..utils import PhaseMetrics
 from .kmer import QueryKmerHash, dedup_adjacent, kmer_vector, lis_length
 
 SEARCH_CHUNK_BYTES = 250_000_000  # database_search.cpp:17
@@ -123,9 +124,16 @@ def _search_database_native(
     record_range=None,
     return_scored: bool = False,
     on_chunk=None,
+    metrics=None,
 ):
     """All-native chunk loop: C++ FASTA streaming feeding the C++ k-mer/LIS
     engine, no per-sequence Python objects (native/search.cpp).
+
+    ``metrics`` (a ``PhaseMetrics``) times the spans ``search.index`` (the
+    queries' k-mer index and the engine's tables), ``search.read`` (each
+    database part's read) and ``search.scan`` (each
+    ``sift4g_search_chunk``, counting its ``residues`` and ``sequences``),
+    and splits the scan by the engine's own counters (:func:`_scan_split`).
 
     ``on_chunk(codes, offsets, names, start_index, snapshot)`` is invoked
     after each chunk is admitted; ``snapshot()`` returns the engine's
@@ -137,24 +145,28 @@ def _search_database_native(
 
     from ..io.fasta import FastaStream
 
-    qhash = QueryKmerHash([q.codes for q in queries], kmer_length)
+    if metrics is None:
+        metrics = PhaseMetrics(enabled=False)
     i64p = ctypes.POINTER(ctypes.c_int64)
     i32p = ctypes.POINTER(ctypes.c_int32)
-    # the native context borrows these arrays — keep them alive until destroy
-    starts = np.ascontiguousarray(qhash.starts)
-    hit_query = np.ascontiguousarray(qhash.hit_query)
-    hit_pos = np.ascontiguousarray(qhash.hit_pos)
-    ctx = lib.sift4g_search_create(
-        len(queries),
-        max_candidates,
-        kmer_length,
-        starts.ctypes.data_as(i32p),
-        starts.shape[0],
-        hit_query.ctypes.data_as(i32p),
-        hit_pos.ctypes.data_as(i32p),
-        hit_query.shape[0],
-        max(int(threads), 0),
-    )
+    with metrics.phase("search.index"):
+        qhash = QueryKmerHash([q.codes for q in queries], kmer_length)
+        # the native context borrows these arrays — keep them alive until destroy
+        starts = np.ascontiguousarray(qhash.starts)
+        hit_query = np.ascontiguousarray(qhash.hit_query)
+        hit_pos = np.ascontiguousarray(qhash.hit_pos)
+        ctx = lib.sift4g_search_create(
+            len(queries),
+            max_candidates,
+            kmer_length,
+            starts.ctypes.data_as(i32p),
+            starts.shape[0],
+            hit_query.ctypes.data_as(i32p),
+            hit_pos.ctypes.data_as(i32p),
+            hit_query.shape[0],
+            max(int(threads), 0),
+        )
+    scan_s0 = metrics.phases.get("search.scan", {}).get("seconds", 0.0)
     total_cells = 0
     consumed = record_range[0] if record_range else 0
     try:
@@ -176,16 +188,20 @@ def _search_database_native(
                 ]
 
             while more:
-                more, codes, offsets, names = fs.read_part_arrays(chunk_bytes)
+                with metrics.phase("search.read"):
+                    more, codes, offsets, names = fs.read_part_arrays(chunk_bytes)
                 n_seq = offsets.shape[0] - 1
                 if n_seq:
-                    total_cells += lib.sift4g_search_chunk(
-                        ctx,
-                        codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-                        offsets.ctypes.data_as(i64p),
-                        n_seq,
-                        consumed,
-                    )
+                    with metrics.phase("search.scan"):
+                        residues = lib.sift4g_search_chunk(
+                            ctx,
+                            codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                            offsets.ctypes.data_as(i64p),
+                            n_seq,
+                            consumed,
+                        )
+                    metrics.add("search.scan", residues=float(residues), sequences=float(n_seq))
+                    total_cells += residues
                     start_index = consumed
                     consumed += n_seq
                     if on_chunk is not None:
@@ -217,29 +233,37 @@ def _search_database_native(
             indices = [
                 flat[bounds[i] : bounds[i + 1]] for i in range(len(queries))
             ]
+        st = np.zeros(8, dtype=np.uint64)
+        lib.sift4g_search_stats(ctx, st.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)))
+        scan_s = metrics.phases.get("search.scan", {}).get("seconds", 0.0) - scan_s0
+        _scan_split(metrics, scan_s, [int(x) for x in st])
     finally:
-        import os as _os
-
-        if _os.environ.get("SIFT4G_TPU_SEARCH_STATS"):
-            st = np.empty(8, dtype=np.uint64)
-            lib.sift4g_search_stats(
-                ctx, st.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))
-            )
-            (pack, gather, score, n_lis, n_hits, n_scored,
-             scan_w, merge_w) = (int(x) for x in st)
-            tot = max(pack + gather + score, 1)
-            print(
-                f"[search-stats] cycles pack={pack:.3g} ({100*pack/tot:.0f}%) "
-                f"gather={gather:.3g} ({100*gather/tot:.0f}%) "
-                f"score={score:.3g} ({100*score/tot:.0f}%)  "
-                f"n_scored={n_scored} n_lis={n_lis} lis_hits={n_hits}  "
-                f"wall scan={scan_w:.3g} merge={merge_w:.3g}",
-                file=sys.stderr,
-            )
         lib.sift4g_search_destroy(ctx)
     if return_scored:
         return indices, int(total_cells), scored
     return indices, int(total_cells)
+
+
+def _scan_split(metrics, scan_s: float, stats) -> None:
+    """Count ``search.kmer`` and ``search.lis`` seconds: the engine's
+    scan split by its own counters (``sift4g_search_stats``).
+
+    The engine counts, in CPU cycles, each chunk's scan rounds and its
+    merges on the wall clock (scan_wall, merge_wall) and, in the scan, the
+    busiest thread's k-mer packing, hit gathering and LIS scoring (pack,
+    gather, score).  The rule: ``search.kmer`` is the scan rounds' share
+    of the wall times (pack + gather)'s share of the three, of the
+    ``search.scan`` seconds ``scan_s``; ``search.lis`` likewise with score.
+    The two sum to the scan rounds' share, so never to more than
+    ``search.scan``; the rest is the merges.  A host without a cycle
+    counter reads zeros and counts nothing."""
+    pack, gather, score, _, _, _, scan_w, merge_w = stats
+    busy = pack + gather + score
+    if busy <= 0 or scan_w + merge_w <= 0:
+        return
+    rounds_s = scan_s * scan_w / (scan_w + merge_w)
+    metrics.add("search.kmer", seconds=rounds_s * (pack + gather) / busy)
+    metrics.add("search.lis", seconds=rounds_s * score / busy)
 
 
 def search_database(
@@ -253,6 +277,7 @@ def search_database(
     record_range=None,
     return_scored: bool = False,
     on_chunk=None,
+    metrics=None,
 ):
     """Returns (per-query ascending candidate db indices, total db residues).
 
@@ -265,7 +290,10 @@ def search_database(
     shard (candidate ids stay GLOBAL); ``return_scored`` additionally
     returns per-query (scores, ids) in (score desc, id asc) order so
     per-shard top-k lists merge under the same total order the
-    single-process truncate uses (quirk Q3/Q4 refinement)."""
+    single-process truncate uses (quirk Q3/Q4 refinement).
+
+    ``metrics``: the native engine's spans and counters
+    (:func:`_search_database_native`)."""
     print("** Searching database for candidate sequences **", file=log)
 
     from .. import native
@@ -275,7 +303,7 @@ def search_database(
         return _search_database_native(
             lib, database_path, queries, kmer_length, max_candidates, chunk_bytes,
             log, threads=threads, record_range=record_range,
-            return_scored=return_scored, on_chunk=on_chunk,
+            return_scored=return_scored, on_chunk=on_chunk, metrics=metrics,
         )
     if on_chunk is not None:
         raise ValueError(

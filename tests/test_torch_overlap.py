@@ -68,6 +68,10 @@ def test_overlapped_pipeline_matches_two_phase_and_jax(tmp_path):
     on, m_on = _run(tmp_path, "on", q, db, overlap="on", **kw)
     assert "overlapped" not in m_off.phases["search"]
     assert m_on.phases["search"]["overlapped"] == 1.0
+    # align's cells are the final candidate sets' in either schedule; the
+    # provisional ones hold the evicted candidates' besides
+    assert m_on.phases["align"]["cells"] == m_off.phases["align"]["cells"]
+    assert m_on.phases["align.provisional"]["cells"] >= m_on.phases["align"]["cells"]
     _same_tree(off, on)
     jax_out = tmp_path / "jax-on"
     jax_out.mkdir()
