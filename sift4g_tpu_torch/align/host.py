@@ -21,7 +21,8 @@ PAD_CODE = 31
 _MODE_IDS = {"SW": 0, "NW": 1, "HW": 2, "OV": 3}
 # the C++ aligner's counters, in the order of its out_stats array (enum
 # AlignStat of native/aligner.cpp)
-ALIGN_STATS = ("striped_cells", "scalar_cells", "striped_thread_s", "scalar_thread_s", "threads")
+ALIGN_STATS = ("striped_cells", "scalar_cells", "striped_thread_s", "scalar_thread_s", "threads",
+               "saturated_pairs")
 
 
 class PackedTargets:
@@ -110,7 +111,8 @@ def align_pairs_batch(
     ``align.traceback.records``, and counts on ``align.traceback.native``
     its ``calls``, ``pairs`` and ``cells`` and the C++ aligner's
     ``ALIGN_STATS``: which path took each pair's cells, the seconds the
-    worker threads spent in each, and the threads used.  Without
+    worker threads spent in each, the threads used, and the SW pairs whose
+    striped int16 fill saturated and were rerun on the scalar path.  Without
     ``metrics`` the C++ aligner gets no stats array and reads no clock.
     """
     from ..native import load as _load_native

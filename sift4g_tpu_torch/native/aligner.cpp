@@ -27,6 +27,9 @@
 namespace {
 
 constexpr int32_t NEG = INT32_MIN / 4;
+// An int16 striped fill whose every H stays below this is exact
+// (sift4g_align_batch gives the argument).
+constexpr int32_t kInt16Limit = 30000;
 
 enum Mode { SW = 0, NW = 1, HW = 2, OV = 3 };
 
@@ -218,12 +221,14 @@ void align_one(const uint8_t* q, int m, const uint8_t* t, int n,
 }
 
 // SW traceback via the striped AVX2 int16 fill (sw_simd.cpp): ~17x the
-// scalar H fill per thread.  Exact under the int16 guard the score path
-// already uses (min(m, n) * max|sub| < 30000); per-column striped H is
+// scalar H fill per thread.  Exact when every H the fill stores stays
+// below kInt16Limit, which the fill's own best says (see
+// sift4g_align_batch); returns false without touching *out otherwise, and
+// the caller reruns the pair on the scalar path.  Per-column striped H is
 // final after lazy-F, and the traceback de-stripes on access.  Moves are
 // bit-identical to the scalar path (same traceback_from, same values) —
-// property-tested in tests/test_native_aligner.py.
-void align_one_striped(const sift4g_simd::Profile16& prof, const uint8_t* q,
+// property-tested in tests/test_torch_native_aligner.py.
+bool align_one_striped(const sift4g_simd::Profile16& prof, const uint8_t* q,
                        int m, const uint8_t* t, int n, const int32_t* mat,
                        int go, int ge, AlignResult* out, DpBuffers* buf) {
   const int seg_len = prof.seg_len;
@@ -232,6 +237,7 @@ void align_one_striped(const sift4g_simd::Profile16& prof, const uint8_t* q,
   buf->colmax.resize(n);
   int32_t best = sift4g_simd::sw_striped16_cols(
       prof, t, n, go, ge, &buf->sbuf, buf->hcols.data());
+  if (best >= kInt16Limit) return false;
   const int16_t* hc = buf->hcols.data();
   // per-column maxes for the endpoint search (pad lanes hold 0 <= any
   // positive max; the best <= 0 case never reads them)
@@ -268,6 +274,7 @@ void align_one_striped(const sift4g_simd::Profile16& prof, const uint8_t* q,
     ei = bi; ej = bj;
   }
   traceback_from(HA, ei, ej, m, n, q, t, mat, go, ge, SW, score, out, buf);
+  return true;
 }
 
 // Score-only affine DP in linear memory (two rolling rows) — the honest
@@ -340,7 +347,7 @@ void sift4g_score_batch(const uint8_t* q, int32_t qlen, const uint8_t* base,
     matmax = std::max(matmax, std::abs(matrix26[x]));
   const bool striped_ok =
       mode == SW && qlen > 0 && sift4g_simd::have_avx2() &&
-      gap_open < 30000 && gap_extend < 30000 &&
+      gap_open < kInt16Limit && gap_extend < kInt16Limit &&
       std::getenv("SIFT4G_TPU_NO_SIMD") == nullptr;  // scalar A/B knob
   sift4g_simd::Profile16 prof;
   if (striped_ok) sift4g_simd::build_profile16(q, qlen, matrix26, &prof);
@@ -354,7 +361,7 @@ void sift4g_score_batch(const uint8_t* q, int32_t qlen, const uint8_t* base,
       const int32_t len = lens[idx];
       if (striped_ok && len > 0 &&
           static_cast<int64_t>(std::min<int32_t>(qlen, len)) * matmax <
-              30000) {
+              kInt16Limit) {
         out_score[idx] = sift4g_simd::sw_striped16(
             prof, base + starts[idx], len, gap_open, gap_extend, &sbuf);
       } else {
@@ -373,13 +380,15 @@ void sift4g_score_batch(const uint8_t* q, int32_t qlen, const uint8_t* base,
 // Outputs: per-target score/starts/ends; edit paths concatenated into
 // moves_buf (caller-sized to sum(m + n_i)) with moves_off (n_targets + 1).
 // out_stats, when not null, receives ALIGN_STATS doubles: the cells (query
-// length x target length) of the pairs the striped int16 path took and of
-// those the scalar int32 path took, the seconds the worker threads spent
-// in each path (a steady_clock pair around each pair's fill and
-// traceback, summed over the pairs), and the threads used.  Null reads no
-// clock.  Returns 0 on success, -1 if moves_buf would overflow.
+// length x target length) of the pairs the striped int16 path finished and
+// of those the scalar int32 path took, the seconds the worker threads
+// spent in each path (a steady_clock pair around each pair's fill and
+// traceback, summed over the pairs), the threads used, and the pairs whose
+// striped fill saturated and were rerun on the scalar path (their cells
+// and both attempts' seconds count as scalar).  Null reads no clock.
+// Returns 0 on success, -1 if moves_buf would overflow.
 enum AlignStat { STRIPED_CELLS, SCALAR_CELLS, STRIPED_THREAD_S, SCALAR_THREAD_S, THREADS,
-                 ALIGN_STATS };
+                 SATURATED_PAIRS, ALIGN_STATS };
 
 int sift4g_align_batch(const uint8_t* q, int32_t qlen, const uint8_t* targets,
                        const int64_t* offsets, int32_t n_targets,
@@ -396,14 +405,27 @@ int sift4g_align_batch(const uint8_t* q, int32_t qlen, const uint8_t* targets,
   nt = std::min<int>(nt, std::max<int32_t>(1, n_targets));
 
   // striped AVX2 traceback fill (SW only): one shared read-only query
-  // profile, per-target int16 overflow guard — same gate as the score
-  // path (sift4g_score_batch)
+  // profile; every pair tries it first and keeps its result only if the
+  // fill's own best is below kInt16Limit.  Why that check suffices: the
+  // profile holds each substitution exactly (|sub| < kInt16Limit, checked
+  // here) and -30000 on pad rows.  H >= 0 after the local clamp, so
+  // the diagonal add H + sub never clips downward.  E and F are
+  // max(prev - ge, H - go) >= -go > -kInt16Limit, so a prev - ge that
+  // clips downward loses to H - go, as its true value would.  The only
+  // clip that can alter a value is the diagonal add's upward one, to
+  // 32767, and that value is stored as an H.  The fill's best is the max
+  // of every H it stores (both loops, lazy-F updates and pad lanes
+  // included), so best < kInt16Limit means no H clipped and every stored
+  // value is the int32 recurrence's.  A bound before the fill
+  // (min(qlen, n) * max|sub|, as sift4g_score_batch keeps) would send
+  // every long pair to the scalar path though few come near the limit.
   int32_t matmax = 0;
   for (int x = 0; x < 26 * 26; ++x)
     matmax = std::max(matmax, std::abs(matrix26[x]));
   const bool striped_ok =
       mode == SW && qlen > 0 && sift4g_simd::have_avx2() &&
-      gap_open < 30000 && gap_extend < 30000 &&
+      matmax < kInt16Limit && gap_open < kInt16Limit &&
+      gap_extend < kInt16Limit &&
       std::getenv("SIFT4G_TPU_NO_SIMD") == nullptr;
   sift4g_simd::Profile16 prof;
   if (striped_ok) sift4g_simd::build_profile16(q, qlen, matrix26, &prof);
@@ -424,25 +446,24 @@ int sift4g_align_batch(const uint8_t* q, int32_t qlen, const uint8_t* targets,
       int n = static_cast<int>(offsets[idx + 1] - offsets[idx]);
       std::chrono::steady_clock::time_point t0;
       if (out_stats != nullptr) t0 = std::chrono::steady_clock::now();
+      const bool tried = striped_ok && n > 0;
       const bool striped =
-          striped_ok && n > 0 &&
-          static_cast<int64_t>(std::min<int32_t>(qlen, n)) * matmax < 30000;
-      if (striped) {
-        align_one_striped(prof, q, qlen, t, n, matrix26, gap_open,
-                          gap_extend, &results[idx], &buf);
-      } else {
+          tried && align_one_striped(prof, q, qlen, t, n, matrix26, gap_open,
+                                     gap_extend, &results[idx], &buf);
+      if (!striped)
         align_one(q, qlen, t, n, matrix26, gap_open, gap_extend, mode,
                   &results[idx], &buf);
-      }
       if (out_stats != nullptr) {
         const std::chrono::duration<double> dt = std::chrono::steady_clock::now() - t0;
         mine[striped ? STRIPED_CELLS : SCALAR_CELLS] += static_cast<double>(qlen) * n;
         mine[striped ? STRIPED_THREAD_S : SCALAR_THREAD_S] += dt.count();
+        if (tried && !striped) mine[SATURATED_PAIRS] += 1.0;
       }
     }
     if (out_stats != nullptr) {
       std::lock_guard<std::mutex> hold(stats_mu);
-      for (int k = STRIPED_CELLS; k <= SCALAR_THREAD_S; ++k) out_stats[k] += mine[k];
+      for (int k = 0; k < ALIGN_STATS; ++k)
+        if (k != THREADS) out_stats[k] += mine[k];
     }
   };
   std::vector<std::thread> threads;

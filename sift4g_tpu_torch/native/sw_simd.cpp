@@ -8,9 +8,10 @@
 // scalar recurrence (gap of length L costs open + (L-1)*extend, match
 // costs from the 26x26 matrix) — property-fuzzed against score_one /
 // the NumPy oracle in tests/test_native_aligner.py.  The int16
-// representation is safe when min(m, n) * max|sub| stays below the
-// overflow guard; callers gate and fall back to the scalar path
-// otherwise (and for NW/HW/OV modes).
+// representation is exact while every H stays below the overflow guard:
+// the score path gates on the bound min(m, n) * max|sub| before the
+// fill, the traceback (aligner.cpp) on the fill's own best after it, and
+// both fall back to the scalar path otherwise (and for NW/HW/OV modes).
 //
 // State lives in plain int16_t vectors accessed with unaligned
 // loads/stores (std::vector<__m256i> silently drops the 32-byte

@@ -3,7 +3,8 @@ search and align), and the benchmark's readers of them, on the CPU.
 
 ``PhaseMetrics.phase`` opens a ``phase:``-prefixed profiler range only
 while a profiler records and only on the thread that made it; the
-traceback counts the cells of its striped int16 and scalar int32 paths;
+traceback counts the cells of its striped int16 and scalar int32 paths
+and the pairs whose int16 fill saturated;
 the scan's split sums to no more than the scan; and the readers in
 ``benchmark/metrics`` turn the counters into the per-layer metrics."""
 
@@ -82,18 +83,23 @@ def _codes(rng, n):
 
 @needs_native
 @pytest.mark.parametrize("mode, qlen, tlen, path", [
-    ("SW", 300, 420, "striped"),      # min(300, 420) x 11 < 30000
-    ("SW", 2800, 2750, "scalar"),     # min(2800, 2750) x 11 >= 30000: int16 could overflow
+    ("SW", 300, 420, "striped"),      # the homolog scores far under 30,000
+    ("SW", 2800, 2750, "striped"),    # past min(qlen, n) x 11 >= 30000, yet its best stays under 30,000
     ("NW", 300, 420, "scalar"),       # the striped fill is SW only
+    ("SW", 3000, 3000, "saturated"),  # a run of W against itself scores 33,000: rerun on int32
 ])
 def test_traceback_counts_the_cells_of_each_path(monkeypatch, mode, qlen, tlen, path):
     monkeypatch.delenv("SIFT4G_TPU_NO_SIMD", raising=False)
     rng = np.random.default_rng(qlen + tlen)
     scorer = create_scorer("BLOSUM_62", 10, 1)
-    q = _codes(rng, qlen)
-    # a homolog of the query and an unrelated target of the same length
-    homolog = q[:tlen].copy() if tlen <= qlen else np.concatenate([q, _codes(rng, tlen - qlen)])
-    homolog[::7] = _codes(rng, homolog[::7].size)
+    if path == "saturated":
+        q = np.full(qlen, ord("W") - ord("A"), dtype=np.uint8)
+        homolog = q[:tlen].copy()
+    else:
+        q = _codes(rng, qlen)
+        # a homolog of the query and an unrelated target of the same length
+        homolog = q[:tlen].copy() if tlen <= qlen else np.concatenate([q, _codes(rng, tlen - qlen)])
+        homolog[::7] = _codes(rng, homolog[::7].size)
     targets = [homolog, _codes(rng, tlen)]
     m = PhaseMetrics(enabled=False)
     recs = align_pairs_batch(q, targets, scorer, mode, threads=2, metrics=m)
@@ -108,9 +114,16 @@ def test_traceback_counts_the_cells_of_each_path(monkeypatch, mode, qlen, tlen, 
     cells = float(qlen) * 2 * tlen
     assert d["cells"] == cells and d["pairs"] == 2 and d["threads"] == 2
     assert d["striped_cells"] + d["scalar_cells"] == d["cells"]
-    assert d[path + "_cells"] == cells and d[path + "_thread_s"] > 0
-    other = "scalar" if path == "striped" else "striped"
-    assert d[other + "_cells"] == 0 and d[other + "_thread_s"] == 0
+    # the saturated homolog falls back to the scalar path, the unrelated
+    # target stays on the striped one
+    paths = ["scalar", "striped"] if path == "saturated" else [path, path]
+    for p in ("striped", "scalar"):
+        k = paths.count(p)
+        assert d[p + "_cells"] == k * cells / 2
+        assert (d[p + "_thread_s"] > 0) == (k > 0)
+    if path == "saturated":
+        assert recs[0].score == 11 * qlen
+    assert d["saturated_pairs"] == (1 if path == "saturated" else 0)
     for span in ("align.traceback.pack", "align.traceback.native", "align.traceback.records"):
         assert m.phases[span]["seconds"] >= 0
 
