@@ -351,14 +351,21 @@ def _run_overlapped(
     resolves: List = []
 
     def _resolve_one(fetch, meta):
-        # a counter, not a span: this runs on the resolver's thread
+        # runs on the resolver's thread: it returns its wait, which
+        # _collect adds on the job's thread as the counter align.fetch
         t0 = time.perf_counter()
         all_scores = fetch()
-        metrics.add("align.fetch", seconds=time.perf_counter() - t0)
+        fetch_s = time.perf_counter() - t0
         for (qi, ids), scores in zip(meta, all_scores):
             d = prov[qi]
             for t, s in zip(ids.tolist(), scores.tolist()):
                 d[t] = s
+        return fetch_s
+
+    def _collect(fut):
+        fetch_s = fut.result()  # a resolve's or a compaction's error surfaces here
+        if fetch_s is not None:
+            metrics.add("align.fetch", seconds=fetch_s)
 
     # admitted-then-evicted ids accrue in prov across chunks; compaction
     # drops keys absent from the engine's snapshot, which is exact because
@@ -406,7 +413,7 @@ def _run_overlapped(
         # device results (two futures per chunk)
         with metrics.phase("search.wait"):
             while resolves and (resolves[0].done() or len(resolves) > 4):
-                resolves.pop(0).result()
+                _collect(resolves.pop(0))
 
     try:
         with metrics.phase("search"):
@@ -423,7 +430,7 @@ def _run_overlapped(
             )
             with metrics.phase("search.wait"):
                 for fut in resolves:
-                    fut.result()  # fetch errors propagate; every score landed
+                    _collect(fut)  # fetch errors propagate; every score landed
     finally:
         resolver.shutdown(wait=True)
     metrics.add("search", db_residues=float(cells), queries=float(len(queries)),
@@ -925,15 +932,25 @@ def finish_pipeline(
         if device_qis:
             _predict_on_device(cfg, queries, all_names, all_rows, device_qis, subst_paths,
                                predict_device(cfg, devices), metrics)
+    if cfg.predict_backend == "device":
+        # the queries with rows that the device branch left to the host oracle
+        metrics.add("predict", host_queries=float(sum(
+            1 for qi in range(len(queries))
+            if all_rows[qi].shape[0] and qi not in device_set)))
     metrics.report()
 
 
 def _predict_on_device(cfg, queries, all_names, all_rows, device_qis, subst_paths, device,
                        metrics) -> None:
     """The device-predict branch of :func:`finish_pipeline`: row
-    preparation over the host threads, the subst finishers (a spawn
-    process pool from 256 subst queries), the batched launches and the
-    finishers' drain."""
+    preparation over the host threads (span ``predict.prep``), the subst
+    finishers (a spawn process pool from 256 subst queries), the batched
+    launches (``predict_batch.predict_matrix_batch``: spans
+    ``predict.pack``, ``predict.fetch``, ``predict.finish``) and the
+    finishers' drain (``predict.finish`` too).  The finishers' counts
+    (``predict_subst.finish_counts``) come back from the writer threads or
+    the pool and are added to ``predict.finish`` here, on the job's
+    thread."""
     from .sift.predict import prepare_rows
     from .sift.predict_batch import predict_matrix_batch
 
@@ -944,15 +961,14 @@ def _predict_on_device(cfg, queries, all_names, all_rows, device_qis, subst_path
 
     # row prep (Q7 cap, identity filter, vstack) is independent per query
     # and NumPy-heavy: fan it over the host threads
-    t_prep = time.perf_counter()
-    if cfg.threads > 1 and len(device_qis) > 1:
-        from concurrent.futures import ThreadPoolExecutor
+    with metrics.phase("predict.prep"):
+        if cfg.threads > 1 and len(device_qis) > 1:
+            from concurrent.futures import ThreadPoolExecutor
 
-        with ThreadPoolExecutor(max_workers=cfg.threads) as ex:
-            prepared = list(ex.map(_prep, device_qis))
-    else:
-        prepared = [_prep(qi) for qi in device_qis]
-    metrics.add("predict.prep", seconds=time.perf_counter() - t_prep)
+            with ThreadPoolExecutor(max_workers=cfg.threads) as ex:
+                prepared = list(ex.map(_prep, device_qis))
+        else:
+            prepared = [_prep(qi) for qi in device_qis]
     finishers = None
     subst_exec, subst_futs = None, []
     if subst_paths:
@@ -988,16 +1004,17 @@ def _predict_on_device(cfg, queries, all_names, all_rows, device_qis, subst_path
                     finish_subst_query(a[0], a[1], a[2], scores, a[3], log=log)
                 )
     try:
-        predict_matrix_batch(
+        counts = predict_matrix_batch(
             [queries[qi] for qi in device_qis], prepared, cfg.out_path,
             threads=cfg.threads, metrics=metrics, finishers=finishers, device=device,
             log=log,
         )
-        t_drain = time.perf_counter()
-        for fut in subst_futs:
-            fut.result()  # surface worker exceptions
         if subst_futs:
-            metrics.add("predict.substdrain", seconds=time.perf_counter() - t_drain)
+            with metrics.phase("predict.finish"):
+                # surface worker exceptions
+                counts += [fut.result() for fut in subst_futs]
     finally:
         if subst_exec is not None:
             subst_exec.shutdown()
+    for c in counts:
+        metrics.add("predict.finish", **c)

@@ -61,7 +61,6 @@ the depth are parameters.
 
 from __future__ import annotations
 
-import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Sequence, Tuple
@@ -164,9 +163,10 @@ def predict_matrix_batch(
     device=None,
     depth: int = DEPTH,
     log=None,
-) -> None:
+) -> list:
     """Score and write the ``.SIFTprediction`` files of device-batched
-    queries.
+    queries; returns what the ``finishers`` returned (None left out), for
+    the caller to add to its metrics on its own thread.
 
     ``prepared_rows[i]``: (n_i, L_i) codes with the query as row 0
     (``predict.prepare_rows``: the Q7 cap and identity filter applied).
@@ -184,8 +184,20 @@ def predict_matrix_batch(
     Software-pipelined: chunk k+1 is packed and queued before chunk k's
     scores are fetched, and the per-query file writes run on a host
     thread pool (the reference's per-query prediction tasks,
-    sift_prediction.cpp:144-171) under the device's work."""
+    sift_prediction.cpp:144-171) under the device's work.
+
+    ``metrics`` (a ``PhaseMetrics``; every span on the caller's thread):
+    ``predict.pack``, each chunk's fill, upload and enqueue, counting its
+    ``positions`` (the queries' lengths),
+    ``cells`` (each query's rows times its length) and ``launched_cells``
+    (``Qc x n_pad x L_pad``); ``predict.fetch``, each wait on a chunk's
+    scores; ``predict.finish``, the wait on the writers after the last
+    fetch."""
+    from ..utils import PhaseMetrics
     from .scores_torch import sift_scores_from_rows_batch
+
+    if metrics is None:
+        metrics = PhaseMetrics(enabled=False)
 
     device = torch.device(device if device is not None else "cuda")
     on_card = device.type == "cuda"
@@ -196,7 +208,7 @@ def predict_matrix_batch(
     n_rows = [r.shape[0] for r in prepared_rows]
     buckets = bucket_shapes(lens, n_rows)
     if not buckets:
-        return
+        return []
     widths = chunk_widths(buckets, device, q_chunk, depth, log)
     chunks = [
         (key, idxs[start : start + widths[key]])
@@ -246,12 +258,11 @@ def predict_matrix_batch(
     def write_one(scores_row, qi):
         fin = finishers[qi] if finishers is not None else None
         if fin is not None:
-            fin(scores_row[: lens[qi]])
-            return
+            return fin(scores_row[: lens[qi]])
         out_path = create_file_name(queries[qi].name, out_dir, ".SIFTprediction")
         write_matrix_original_format(scores_row[: lens[qi]].astype(np.float64), out_path)
+        return None
 
-    t_pack = t_fetch = 0.0
     # the writer pool drains thousands of file writes; the fills get a
     # pool of their own, or they would queue behind every pending write
     with ThreadPoolExecutor(max_workers=max(1, threads)) as pool, \
@@ -260,30 +271,28 @@ def predict_matrix_batch(
         write_futs = []
 
         def drain_one():
-            nonlocal t_fetch
             host, done, chunk = pending.popleft()
-            t0 = time.perf_counter()
-            if done is not None:
-                done.synchronize()  # the only wait on the card
-            # the numpy view keeps the pinned buffer alive while writers read it
-            scores = host.numpy()
-            t_fetch += time.perf_counter() - t0
+            with metrics.phase("predict.fetch"):
+                if done is not None:
+                    done.synchronize()  # the only wait on the card
+                # the numpy view keeps the pinned buffer alive while writers read it
+                scores = host.numpy()
             write_futs.extend(pool.submit(write_one, scores[j], qi)
                               for j, qi in enumerate(chunk))
 
         for key, chunk in chunks:
-            t0 = time.perf_counter()
-            host, done = dispatch(key, chunk, fill_pool)
+            L_pad, n_pad = key
+            with metrics.phase("predict.pack"):
+                host, done = dispatch(key, chunk, fill_pool)
+            metrics.add("predict.pack", positions=float(sum(lens[i] for i in chunk)),
+                        cells=float(sum(n_rows[i] * lens[i] for i in chunk)),
+                        launched_cells=float(len(chunk) * n_pad * L_pad))
             pending.append((host, done, chunk))
-            t_pack += time.perf_counter() - t0
             if len(pending) >= depth:
                 drain_one()
         while pending:
             drain_one()
-        t0 = time.perf_counter()
-        for f in write_futs:
-            f.result()  # surface writer exceptions
-    if metrics is not None:
-        metrics.add("predict.pack", seconds=t_pack)
-        metrics.add("predict.fetch", seconds=t_fetch)
-        metrics.add("predict.writedrain", seconds=time.perf_counter() - t0)
+        with metrics.phase("predict.finish"):
+            # surface writer exceptions
+            done_writes = [f.result() for f in write_futs]
+    return [r for r in done_writes if r is not None]

@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import os
 import sys
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -127,15 +127,24 @@ def sparse_exact_scores(
     return sift
 
 
-def finish_subst_task(payload) -> None:
+def finish_counts(n_positions: int, exact: int, fallback: bool = False) -> Dict[str, float]:
+    """A finisher's counts (:func:`finish_subst_query`): ``n_positions``
+    all exact after a fallback."""
+    return {"positions": float(n_positions),
+            "exact_positions": 0.0 if fallback else float(exact),
+            "fallback_positions": float(n_positions) if fallback else 0.0}
+
+
+def finish_subst_task(payload) -> Dict[str, float]:
     """Process-pool entry for one subst finisher (picklable flat payload;
     used by the pipeline when the subst query count is large — the
     finisher's GIL-held numpy share (~6 ms/query) serializes a THREAD
-    pool, measured as ~125 s of predict.writedrain at 20k queries).
-    Workers import only numpy/scipy modules (no JAX)."""
+    pool, measured as ~125 s of the writers' drain at 20k queries).
+    Workers import only numpy/scipy modules (no JAX).  Returns the
+    finisher's counts, which the pipeline adds on the job's thread."""
     (name, letters, rows, subst_lines, f32_scores, out_path) = payload
     query = Chain.from_string(name, letters)
-    finish_subst_query(query, rows, subst_lines, f32_scores, out_path)
+    return finish_subst_query(query, rows, subst_lines, f32_scores, out_path)
 
 
 def make_subst_executor(n_subst: int):
@@ -189,13 +198,20 @@ def finish_subst_query(
     out_path: str,
     eps_screen: Optional[float] = None,
     log=sys.stderr,
-) -> None:
+) -> Dict[str, float]:
     """Complete one subst-mode query from its device f32 score matrix.
 
     ``rows``: prepared code rows (query as row 0 — predict.prepare_rows).
     ``f32_scores``: (>=L, 26) device scores (padding rows beyond L ignored).
     Output is byte-identical to predict.predict_prepared's by
-    construction; a failed screen verification falls back to it."""
+    construction; a failed screen verification falls back to it.
+
+    Returns its counts (:func:`finish_counts`): the query's ``positions``;
+    ``exact_positions``, those re-derived by :func:`sparse_exact_scores`
+    in a query that kept the hybrid; ``fallback_positions``, those of a
+    query sent whole to ``predict_prepared``.  The caller adds them to its
+    metrics: a finisher runs on a writer thread or a pool process, where
+    no metrics are added."""
     if eps_screen is None:
         eps_screen = EPS_SCREEN
     L = len(query)
@@ -226,7 +242,7 @@ def finish_subst_query(
                 file=log,
             )
             predict_prepared(query, rows, subst_lines, out_path)
-            return
+            return finish_counts(L, 0, fallback=True)
         hybrid = f32.copy()
         hybrid[positions] = exact
 
@@ -241,3 +257,4 @@ def finish_subst_query(
         subst_lines, median_for_pos, hybrid, aas_stored,
         total_seq, query, out_path,
     )
+    return finish_counts(L, int(positions.size))

@@ -62,10 +62,12 @@ class PhaseMetrics:
     ``torch.profiler`` records, a span opened on the thread that made this
     object (the job's) is also a ``record_function`` range named
     ``RANGE_PREFIX + name``, so the profiler's nesting gives each span its
-    parent.  Other threads (the overlap's resolver, the host pools) add
-    counters only: an idle stretch of the device is laid to the innermost
-    range open over it on any thread, and a worker's range would take
-    stretches the job's thread spent elsewhere."""
+    parent.  An idle stretch of the device is laid to the innermost range
+    open over it on any thread, and a worker's range would take stretches
+    the job's thread spent elsewhere.  ``add`` takes no lock, so only the
+    job's thread adds: the overlap's resolver and the host pools return
+    their counts, and the job's thread adds them once it has collected
+    them."""
 
     def __init__(self, log=sys.stderr, enabled: bool = True):
         self.log = log

@@ -439,8 +439,9 @@ def test_long_queries_route_to_host_oracle(tmp_path, monkeypatch):
     assert routed == ["Q0"]
     assert (dev / "Q0.SIFTprediction").exists()
     assert filecmp.cmp(host / "Q1.SIFTprediction", dev / "Q1.SIFTprediction", shallow=False)
-    assert {"predict.prep", "predict.pack", "predict.fetch", "predict.writedrain"} <= \
+    assert {"predict.prep", "predict.pack", "predict.fetch", "predict.finish"} <= \
         set(m.phases)
+    assert m.phases["predict"]["host_queries"] == 1.0
 
 
 def test_pipeline_device_subst_byte_identical_to_host(tmp_path):
@@ -465,7 +466,8 @@ def test_pipeline_subst_process_pool_byte_identical(tmp_path, monkeypatch):
     host, _ = _run(tmp_path, "host", predict_backend="host", subst_path=sub)
     monkeypatch.setenv("SIFT4G_TPU_SUBST_PROCS", "2")
     pool, m = _run(tmp_path, "pool", predict_backend="device", subst_path=sub)
-    assert "predict.substdrain" in m.phases
+    assert m.phases["predict.finish"]["seconds"] >= 0
+    assert m.phases["predict.finish"]["positions"] == 200.0
     for name in sorted(os.listdir(host)):
         assert filecmp.cmp(host / name, pool / name, shallow=False), name
 

@@ -213,6 +213,104 @@ def test_search_and_align_spans_of_both_schedules(tmp_path):
         assert on.phases["align.traceback.native"][k] == off.phases["align.traceback.native"][k]
 
 
+def _subst_files(tmp_path, q, n=6, seed=3):
+    """A .subst list of ``n`` substitutions for each query of ``q``."""
+    rng = np.random.default_rng(seed)
+    sub = tmp_path / "subst"
+    sub.mkdir(exist_ok=True)
+    with open(q) as fh:
+        lines = fh.read().split()
+    for name, seq in zip(lines[::2], lines[1::2]):
+        with open(sub / (name[1:] + ".subst"), "w") as fh:
+            for p in sorted(rng.choice(len(seq), n, replace=False).tolist()):
+                fh.write(f"{seq[p]}{p + 1}{'ACDEFGHIKLMNPQRSTVWY'[int(rng.integers(20))]}\n")
+    return str(sub)
+
+
+PREDICT_SPANS = ("predict.prep", "predict.pack", "predict.fetch", "predict.finish")
+
+
+@needs_native
+def test_device_predict_spans_and_counters_in_subst_mode(tmp_path):
+    q, db = _make_db(tmp_path)
+    sub = _subst_files(tmp_path, q)
+    plain = tmp_path / "plain"
+    plain.mkdir()
+    # metrics off: no profiler, the pipeline's own silent metrics
+    run_pipeline(PipelineConfig(query_path=q, database_path=db, out_path=str(plain),
+                                align_backend="torch", log=io.StringIO(), max_candidates=40,
+                                search_chunk_bytes=40_000, predict_backend="device",
+                                subst_path=sub))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        m = _run(tmp_path, "traced", q, db, predict_backend="device", subst_path=sub)
+    opened = {name for name, _, _, _ in _ranges(prof)}
+    assert {RANGE_PREFIX + s for s in PREDICT_SPANS} <= opened
+    p = m.phases
+    for s in PREDICT_SPANS:
+        assert 0 <= p[s]["seconds"] <= p["predict"]["seconds"]
+    pack = p["predict.pack"]
+    assert 0 < pack["cells"] <= pack["launched_cells"]
+    assert pack["positions"] == sum(len(x) for x in open(q).read().split()[1::2])
+    fin = p["predict.finish"]
+    assert fin["positions"] == pack["positions"]
+    assert 0 < fin["exact_positions"] <= fin["positions"]
+    assert fin["fallback_positions"] == 0
+    assert p["predict"]["host_queries"] == 0
+    assert "predict.writedrain" not in p and "predict.substdrain" not in p
+    names = sorted(os.listdir(plain))
+    assert sum(n.endswith(".SIFTprediction") for n in names) == 3
+    for name in names:
+        with open(plain / name, "rb") as a, open(tmp_path / "traced" / name, "rb") as b:
+            assert a.read() == b.read(), name
+
+
+@needs_native
+def test_finisher_counts_come_back_alike_from_threads_and_the_pool(tmp_path, monkeypatch):
+    """The subst finishers' counts reach the job's thread from the writer
+    threads and from a spawn pool's ``finish_subst_task`` alike; with a
+    query forced to fall back whole, its positions count as exact."""
+    from sift4g_tpu_torch.sift import predict_subst
+
+    q, db = _make_db(tmp_path, n_q=2)
+    sub = _subst_files(tmp_path, q)
+    counts = {}
+    for procs in ("0", "1"):
+        monkeypatch.setenv("SIFT4G_TPU_SUBST_PROCS", procs)
+        counts[procs] = _run(tmp_path, "procs" + procs, q, db, predict_backend="device",
+                             subst_path=sub).phases["predict.finish"]
+    keys = set(predict_subst.finish_counts(1, 0))
+    assert {k: counts["0"][k] for k in keys} == {k: counts["1"][k] for k in keys}
+    assert counts["0"]["exact_positions"] > 0
+    # a screen margin of 0 fails every verification: every query falls back
+    monkeypatch.setenv("SIFT4G_TPU_SUBST_PROCS", "0")
+    monkeypatch.setattr(predict_subst, "EPS_SCREEN", 0.0)
+    fell = _run(tmp_path, "fallback", q, db, predict_backend="device",
+                subst_path=sub).phases["predict.finish"]
+    assert fell["fallback_positions"] == fell["positions"] == counts["0"]["positions"]
+    assert fell["exact_positions"] == 0
+
+
+@needs_native
+def test_only_the_job_thread_adds_counters(tmp_path, monkeypatch):
+    """Overlapped search and align (the resolver's fetches) and device
+    predict with its writer threads: every ``PhaseMetrics.add`` runs on
+    the thread that made the metrics."""
+    q, db = _make_db(tmp_path)
+    sub = _subst_files(tmp_path, q)
+    threads = []
+    real = PhaseMetrics.add
+
+    def spy(self, phase, **counters):
+        threads.append((phase, threading.get_ident() == self._thread))
+        return real(self, phase, **counters)
+
+    monkeypatch.setattr(PhaseMetrics, "add", spy)
+    m = _run(tmp_path, "on", q, db, overlap="on", predict_backend="device", subst_path=sub)
+    assert {"align.fetch", "predict.pack", "predict.finish"} <= {ph for ph, _ in threads}
+    assert [ph for ph, same in threads if not same] == []
+    assert m.phases["align.fetch"]["seconds"] > 0
+
+
 # ------------------------------------------------------------------ readers
 
 class _Run:
