@@ -22,7 +22,7 @@ _MODE_IDS = {"SW": 0, "NW": 1, "HW": 2, "OV": 3}
 # the C++ aligner's counters, in the order of its out_stats array (enum
 # AlignStat of native/aligner.cpp)
 ALIGN_STATS = ("striped_cells", "scalar_cells", "striped_thread_s", "scalar_thread_s", "threads",
-               "saturated_pairs")
+               "saturated_pairs", "walk_thread_s")
 
 
 class PackedTargets:
@@ -111,8 +111,9 @@ def align_pairs_batch(
     ``align.traceback.records``, and counts on ``align.traceback.native``
     its ``calls``, ``pairs`` and ``cells`` and the C++ aligner's
     ``ALIGN_STATS``: which path took each pair's cells, the seconds the
-    worker threads spent in each, the threads used, and the SW pairs whose
-    striped int16 fill saturated and were rerun on the scalar path.  Without
+    worker threads spent in each, the threads used, the SW pairs whose
+    striped int16 fill saturated and were rerun on the scalar path, and the
+    striped seconds spent after the fill (the walk).  Without
     ``metrics`` the C++ aligner gets no stats array and reads no clock.
     """
     from ..native import load as _load_native

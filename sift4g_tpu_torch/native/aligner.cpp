@@ -45,66 +45,104 @@ struct DpBuffers {
   std::vector<int32_t> Frow;   // rolling F row for the fill
   std::vector<int32_t> e_row;  // lazily rebuilt E row (traceback)
   std::vector<int32_t> f_col;  // lazily rebuilt F column (traceback)
-  std::vector<int16_t> hcols;  // striped per-column H (SIMD path)
-  std::vector<int16_t> colmax; // per-column max of hcols
+  std::vector<uint8_t> trace;  // striped trace bytes (SIMD path)
   sift4g_simd::Striped16Buffers sbuf;
 };
 
-// Traceback from (ei, ej), generic over the H accessor (scalar int32
-// matrix or striped int16 columns).  Tie order DIAG > E > F, identical to
-// dp_numpy.py align_pair.  E and F are rebuilt lazily: E(i, .) is one
-// left-to-right pass over H row i, F(., j) one top-down pass over H
-// column j — the fill's own recurrence replayed on the final (write-once)
-// H values, so every compared value is bit-identical to a stored-matrix
-// version.  A row/column is rebuilt at most once per visit (cached).
-template <class HAcc>
-void traceback_from(HAcc HA, int ei, int ej, int m, int n, const uint8_t* q,
-                    const uint8_t* t, const int32_t* mat, int go, int ge,
-                    int mode, int32_t score, AlignResult* out,
-                    DpBuffers* buf) {
-  const bool local = mode == SW;
-  std::vector<uint8_t>& moves = out->moves;
-  moves.clear();
-  int i = ei, j = ej;
-  int state = 0;  // 0 = H, 1 = E, 2 = F
-  std::vector<int32_t>& e_row = buf->e_row;
-  std::vector<int32_t>& f_col = buf->f_col;
-  e_row.resize(n + 1);
-  f_col.resize(m + 1);
+// The scalar path's answers to the walk's tests, from the stored int32 H.
+// E and F are rebuilt lazily: E(i, .) is one left-to-right pass over H row
+// i, F(., j) one top-down pass over H column j — the fill's own recurrence
+// replayed on the final (write-once) H values, so every compared value is
+// bit-identical to a stored-matrix version.  A row/column is rebuilt at
+// most once per visit (cached).
+struct ScalarCells {
+  const int32_t* H;
+  int w, m, n;
+  const uint8_t* q;
+  const uint8_t* t;
+  const int32_t* mat;
+  int go, ge;
+  std::vector<int32_t>& e_row;
+  std::vector<int32_t>& f_col;
   int e_valid = -1, f_valid = -1;
-  auto EA = [&](int a, int b) {
+
+  int32_t h(int a, int b) const { return H[static_cast<size_t>(a) * w + b]; }
+  int32_t E(int a, int b) {
     if (e_valid != a) {
       int32_t e = NEG;
       for (int jj = 1; jj <= n; ++jj) {
-        e = std::max(HA(a, jj - 1) - go, e - ge);
+        e = std::max(h(a, jj - 1) - go, e - ge);
         e_row[jj] = e;
       }
       e_valid = a;
     }
     return e_row[b];
-  };
-  auto FA = [&](int a, int b) {
+  }
+  int32_t F(int a, int b) {
     if (f_valid != b) {
       int32_t f = NEG;
       for (int ii = 1; ii <= m; ++ii) {
-        f = std::max(HA(ii - 1, b) - go, f - ge);
+        f = std::max(h(ii - 1, b) - go, f - ge);
         f_col[ii] = f;
       }
       f_valid = b;
     }
     return f_col[a];
-  };
+  }
+  bool zero(int i, int j) const { return h(i, j) == 0; }
+  bool diag(int i, int j) const {
+    return h(i, j) == h(i - 1, j - 1) + mat[q[i - 1] * 26 + t[j - 1]];
+  }
+  bool e_open(int i, int j) { return h(i, j) == E(i, j); }
+  bool f_open(int i, int j) { return h(i, j) == F(i, j); }
+  bool e_ext(int i, int j) { return E(i, j) == E(i, j - 1) - ge; }
+  bool f_ext(int i, int j) { return F(i, j) == F(i - 1, j) - ge; }
+};
+
+// The striped path's answers, read from the fill's trace bytes
+// (sw_striped16_trace, de-striped on access).  In SW a cell with H > 0
+// where neither the diagonal nor E gives H takes it from F, so f_open
+// needs no bit.
+struct TraceCells {
+  const uint8_t* trace;
+  int seg_len;
+
+  uint8_t at(int i, int j) const {
+    const int p = i - 1;
+    return trace[static_cast<size_t>(j - 1) * seg_len * 16 +
+                 static_cast<size_t>(p % seg_len) * 16 + p / seg_len];
+  }
+  bool zero(int i, int j) const { return at(i, j) & sift4g_simd::kTraceZero; }
+  bool diag(int i, int j) const { return at(i, j) & sift4g_simd::kTraceDiag; }
+  bool e_open(int i, int j) const { return at(i, j) & sift4g_simd::kTraceE; }
+  bool f_open(int, int) const { return true; }
+  bool e_ext(int i, int j) const { return at(i, j) & sift4g_simd::kTraceEExt; }
+  bool f_ext(int i, int j) const { return at(i, j) & sift4g_simd::kTraceFExt; }
+};
+
+// Traceback from (ei, ej), generic over the cell tests (ScalarCells or
+// TraceCells).  Tie order DIAG > E > F, identical to dp_numpy.py
+// align_pair.  e_ext(i, j) is E(i, j) == E(i, j - 1) - ge, asked of the
+// cell a LEFT move leaves; f_ext(i, j) likewise of the cell an UP move
+// leaves.
+template <class Cells>
+void traceback_from(Cells& c, int ei, int ej, int mode, int32_t score,
+                    AlignResult* out) {
+  const bool local = mode == SW;
+  std::vector<uint8_t>& moves = out->moves;
+  moves.clear();
+  int i = ei, j = ej;
+  int state = 0;  // 0 = H, 1 = E, 2 = F
   for (;;) {
     if (state == 0) {
       if (i == 0 || j == 0) break;
-      if (local && HA(i, j) == 0) break;
-      int32_t diag = HA(i - 1, j - 1) + mat[q[i - 1] * 26 + t[j - 1]];
-      if (HA(i, j) == diag) {
+      if (local && c.zero(i, j)) break;
+      if (c.diag(i, j)) {
         moves.push_back(0);
         --i; --j;
-      } else if (HA(i, j) == EA(i, j)) {
+      } else if (c.e_open(i, j)) {
         state = 1;
-      } else if (HA(i, j) == FA(i, j)) {
+      } else if (c.f_open(i, j)) {
         state = 2;
       } else {
         break;  // boundary-derived (free end gaps)
@@ -112,11 +150,11 @@ void traceback_from(HAcc HA, int ei, int ej, int m, int n, const uint8_t* q,
     } else if (state == 1) {
       moves.push_back(1);
       --j;
-      state = (j > 0 && EA(i, j + 1) == EA(i, j) - ge) ? 1 : 0;
+      state = (j > 0 && c.e_ext(i, j + 1)) ? 1 : 0;
     } else {
       moves.push_back(2);
       --i;
-      state = (i > 0 && FA(i + 1, j) == FA(i, j) - ge) ? 2 : 0;
+      state = (i > 0 && c.f_ext(i + 1, j)) ? 2 : 0;
     }
   }
   std::reverse(moves.begin(), moves.end());
@@ -215,65 +253,35 @@ void align_one(const uint8_t* q, int m, const uint8_t* t, int n,
     }
   }
 
-  traceback_from(
-      [&](int a, int b) { return H[static_cast<size_t>(a) * w + b]; },
-      ei, ej, m, n, q, t, mat, go, ge, mode, score, out, buf);
+  buf->e_row.resize(n + 1);
+  buf->f_col.resize(m + 1);
+  ScalarCells tests{H.data(), w, m, n, q, t, mat, go, ge, buf->e_row, buf->f_col};
+  traceback_from(tests, ei, ej, mode, score, out);
 }
 
-// SW traceback via the striped AVX2 int16 fill (sw_simd.cpp): ~17x the
-// scalar H fill per thread.  Exact when every H the fill stores stays
-// below kInt16Limit, which the fill's own best says (see
-// sift4g_align_batch); returns false without touching *out otherwise, and
-// the caller reruns the pair on the scalar path.  Per-column striped H is
-// final after lazy-F, and the traceback de-stripes on access.  Moves are
-// bit-identical to the scalar path (same traceback_from, same values) —
-// property-tested in tests/test_torch_native_aligner.py.
-bool align_one_striped(const sift4g_simd::Profile16& prof, const uint8_t* q,
-                       int m, const uint8_t* t, int n, const int32_t* mat,
-                       int go, int ge, AlignResult* out, DpBuffers* buf) {
-  const int seg_len = prof.seg_len;
-  const size_t row = static_cast<size_t>(seg_len) * 16;
-  buf->hcols.resize(static_cast<size_t>(n) * row);
-  buf->colmax.resize(n);
-  int32_t best = sift4g_simd::sw_striped16_cols(
-      prof, t, n, go, ge, &buf->sbuf, buf->hcols.data());
-  if (best >= kInt16Limit) return false;
-  const int16_t* hc = buf->hcols.data();
-  // per-column maxes for the endpoint search (pad lanes hold 0 <= any
-  // positive max; the best <= 0 case never reads them)
-  for (int j = 0; j < n; ++j) {
-    int16_t cm = 0;
-    const int16_t* col = hc + static_cast<size_t>(j) * row;
-    for (size_t x = 0; x < row; ++x) cm = std::max(cm, col[x]);
-    buf->colmax[j] = cm;
-  }
-  auto HA = [&](int a, int b) -> int32_t {
-    if (a == 0 || b == 0) return 0;  // SW free boundaries
-    int p = a - 1;
-    return hc[static_cast<size_t>(b - 1) * row +
-              static_cast<size_t>(p % seg_len) * 16 + p / seg_len];
-  };
-  // endpoint: the scalar path scans H row-major with strict '>' — the
-  // FIRST cell holding the global max wins, i.e. the lexicographically
-  // smallest (i, j) among max cells
+// SW traceback via the striped AVX2 int16 fill (sw_simd.cpp), which
+// writes one trace byte a cell and finds the endpoint; the walk reads the
+// bytes.  Exact when every H the fill computes stays below kInt16Limit,
+// which the fill's own best says (see sift4g_align_batch); returns false
+// without touching *out otherwise, and the caller reruns the pair on the
+// scalar path.  Moves are bit-identical to the scalar path (the same walk
+// on the same tests of the same values) — property-tested in
+// tests/test_torch_native_aligner.py.  *walk_s, when not null, gains the
+// seconds after the fill.
+bool align_one_striped(const sift4g_simd::Profile16& prof, const uint8_t* t,
+                       int n, int go, int ge, AlignResult* out, DpBuffers* buf,
+                       double* walk_s) {
+  buf->trace.resize(static_cast<size_t>(n) * prof.seg_len * 16);
   int ei = 0, ej = 0;
-  int32_t score = 0;
-  if (best > 0) {
-    score = best;
-    int bi = m + 1, bj = 0;
-    for (int j = 1; j <= n; ++j) {
-      if (buf->colmax[j - 1] != best) continue;
-      for (int p = 0; p < m; ++p) {
-        if (hc[static_cast<size_t>(j - 1) * row +
-               static_cast<size_t>(p % seg_len) * 16 + p / seg_len] == best) {
-          if (p + 1 < bi) { bi = p + 1; bj = j; }
-          break;
-        }
-      }
-    }
-    ei = bi; ej = bj;
-  }
-  traceback_from(HA, ei, ej, m, n, q, t, mat, go, ge, SW, score, out, buf);
+  const int32_t best = sift4g_simd::sw_striped16_trace(
+      prof, t, n, go, ge, &buf->sbuf, buf->trace.data(), &ei, &ej);
+  if (best >= kInt16Limit) return false;
+  std::chrono::steady_clock::time_point t0;
+  if (walk_s != nullptr) t0 = std::chrono::steady_clock::now();
+  TraceCells tests{buf->trace.data(), prof.seg_len};
+  traceback_from(tests, ei, ej, SW, best, out);
+  if (walk_s != nullptr)
+    *walk_s += std::chrono::duration<double>(std::chrono::steady_clock::now() - t0).count();
   return true;
 }
 
@@ -383,12 +391,14 @@ void sift4g_score_batch(const uint8_t* q, int32_t qlen, const uint8_t* base,
 // length x target length) of the pairs the striped int16 path finished and
 // of those the scalar int32 path took, the seconds the worker threads
 // spent in each path (a steady_clock pair around each pair's fill and
-// traceback, summed over the pairs), the threads used, and the pairs whose
+// traceback, summed over the pairs), the threads used, the pairs whose
 // striped fill saturated and were rerun on the scalar path (their cells
-// and both attempts' seconds count as scalar).  Null reads no clock.
+// and both attempts' seconds count as scalar), and the part of the striped
+// seconds spent after the fill (the walk over the trace bytes).  Null
+// reads no clock.
 // Returns 0 on success, -1 if moves_buf would overflow.
 enum AlignStat { STRIPED_CELLS, SCALAR_CELLS, STRIPED_THREAD_S, SCALAR_THREAD_S, THREADS,
-                 SATURATED_PAIRS, ALIGN_STATS };
+                 SATURATED_PAIRS, WALK_THREAD_S, ALIGN_STATS };
 
 int sift4g_align_batch(const uint8_t* q, int32_t qlen, const uint8_t* targets,
                        const int64_t* offsets, int32_t n_targets,
@@ -409,23 +419,30 @@ int sift4g_align_batch(const uint8_t* q, int32_t qlen, const uint8_t* targets,
   // fill's own best is below kInt16Limit.  Why that check suffices: the
   // profile holds each substitution exactly (|sub| < kInt16Limit, checked
   // here) and -30000 on pad rows.  H >= 0 after the local clamp, so
-  // the diagonal add H + sub never clips downward.  E and F are
-  // max(prev - ge, H - go) >= -go > -kInt16Limit, so a prev - ge that
-  // clips downward loses to H - go, as its true value would.  The only
-  // clip that can alter a value is the diagonal add's upward one, to
-  // 32767, and that value is stored as an H.  The fill's best is the max
-  // of every H it stores (both loops, lazy-F updates and pad lanes
-  // included), so best < kInt16Limit means no H clipped and every stored
-  // value is the int32 recurrence's.  A bound before the fill
+  // the diagonal add H + sub never clips downward.  E is max(prev - ge,
+  // H - go) >= -go > -kInt16Limit, so a prev - ge that clips downward
+  // loses to H - go, as its true value would; F+ >= 0 likewise, and a
+  // carry decayed past int16 stays below it.  The only clip that can
+  // alter a value is the diagonal add's upward one, to 32767, and that
+  // value becomes an H.  The fill's best is the max of every final H (pad
+  // lanes included), and no H it computes exceeds its cell's final H, so
+  // best < kInt16Limit means no H clipped and every value is the int32
+  // recurrence's.  The trace bits compare those values (the diagonal test
+  // its unclipped sum; an extension test's clipped prev - ge is below
+  // every E and F+, as its true value is), so each bit is the int32
+  // recurrence's test, F+ standing for F where the walk reads it
+  // (sw_striped16_trace).  A bound before the fill
   // (min(qlen, n) * max|sub|, as sift4g_score_batch keeps) would send
   // every long pair to the scalar path though few come near the limit.
   int32_t matmax = 0;
   for (int x = 0; x < 26 * 26; ++x)
     matmax = std::max(matmax, std::abs(matrix26[x]));
+  // The trace fill's F scan also needs 0 < ge <= go, which every scorer
+  // of the CLI holds.
   const bool striped_ok =
       mode == SW && qlen > 0 && sift4g_simd::have_avx2() &&
       matmax < kInt16Limit && gap_open < kInt16Limit &&
-      gap_extend < kInt16Limit &&
+      0 < gap_extend && gap_extend <= gap_open &&
       std::getenv("SIFT4G_TPU_NO_SIMD") == nullptr;
   sift4g_simd::Profile16 prof;
   if (striped_ok) sift4g_simd::build_profile16(q, qlen, matrix26, &prof);
@@ -448,8 +465,8 @@ int sift4g_align_batch(const uint8_t* q, int32_t qlen, const uint8_t* targets,
       if (out_stats != nullptr) t0 = std::chrono::steady_clock::now();
       const bool tried = striped_ok && n > 0;
       const bool striped =
-          tried && align_one_striped(prof, q, qlen, t, n, matrix26, gap_open,
-                                     gap_extend, &results[idx], &buf);
+          tried && align_one_striped(prof, t, n, gap_open, gap_extend, &results[idx], &buf,
+                                     out_stats != nullptr ? &mine[WALK_THREAD_S] : nullptr);
       if (!striped)
         align_one(q, qlen, t, n, matrix26, gap_open, gap_extend, mode,
                   &results[idx], &buf);

@@ -1,13 +1,16 @@
 """The port's C++ traceback (``native/aligner.cpp``, through
 ``align.host.align_pairs_batch``) in SW mode: every pair runs the striped
-int16 fill first and is rerun on the scalar int32 path only when that
-fill's own best reaches 30,000.  Held byte for byte (score, ends, moves),
-on pairs past the length bound ``min(qlen, n) * 11 >= 30000`` that used to
-send them to the scalar path and on pairs either side of 30,000, to two
-witnesses: the JAX package's own C++ aligner
-(``sift4g_tpu.align.batch.align_pairs_batch``), which still gates on the
-length bound and so aligns these pairs on its scalar int32 path, and the
-port's scalar path itself, ``SIFT4G_TPU_NO_SIMD=1``."""
+int16 fill first, which writes a trace byte a cell and finds the endpoint,
+and the walk reads the bytes; a pair is rerun on the scalar int32 path only
+when that fill's own best reaches 30,000.  Held byte for byte (score, ends,
+moves), on pairs past the length bound ``min(qlen, n) * 11 >= 30000`` that
+used to send them to the scalar path, on pairs either side of 30,000, and
+on the trace's edges (short queries and pad lanes, vertical gaps across the
+segment wrap, a vertical gap met at once by a horizontal one, tied best
+cells, no positive cell), to two witnesses: the JAX package's own C++
+aligner (``sift4g_tpu.align.batch.align_pairs_batch``), which rebuilds E
+and F from stored H, and the port's scalar path itself,
+``SIFT4G_TPU_NO_SIMD=1``."""
 
 import numpy as np
 import pytest
@@ -130,3 +133,118 @@ def test_either_side_of_the_int16_limit(monkeypatch, tail, best, path):
     assert d["saturated_pairs"] == (1 if path == "scalar" else 0)
     assert d["scalar_cells"] == (pair if path == "scalar" else 0)
     assert d["striped_cells"] == d["cells"] - d["scalar_cells"]
+
+
+def _seg_len(qlen):
+    return (qlen + 15) // 16
+
+
+def _runs(moves, move):
+    """The lengths of the runs of ``move`` in a path."""
+    out, n = [], 0
+    for m in list(moves) + [-1]:
+        if m == move:
+            n += 1
+        elif n:
+            out.append(n)
+            n = 0
+    return out
+
+
+@pytest.mark.parametrize("qlen", [1, 2, 5, 15, 16, 17, 23, 31, 32, 33, 40])
+def test_short_queries_at_the_segment_edges(monkeypatch, qlen):
+    """Queries of 1-40 residues: one segment or a few, lanes past the query
+    padded, lengths on and off multiples of 16."""
+    rng = np.random.default_rng(100 + qlen)
+    q = rng.choice(STD, size=qlen).astype(np.uint8)
+    homolog = q.copy()
+    homolog[::4] = rng.choice(STD, size=homolog[::4].size)
+    targets = [homolog, q[::-1].copy(), rng.choice(STD, size=1).astype(np.uint8),
+               rng.choice(STD, size=qlen + 9).astype(np.uint8),
+               np.concatenate([rng.choice(STD, size=7), q, rng.choice(STD, size=5)]).astype(np.uint8)]
+    want, d, _ = _check(monkeypatch, q, targets)
+    assert d["scalar_cells"] == 0 and d["saturated_pairs"] == 0
+    assert want[4].score > 0
+
+
+@pytest.mark.parametrize("qlen, gap", [(64, 9), (64, 36), (120, 30), (160, 88), (333, 25),
+                                       (1000, 200)])
+def test_vertical_gaps_across_the_segment_wrap(monkeypatch, qlen, gap):
+    """A homolog missing ``gap`` query residues, more than a segment's rows:
+    the walk's F run crosses lanes, where F is carried across the wrap (over
+    eight lanes and more at 64 and 160 residues)."""
+    assert gap > _seg_len(qlen)
+    rng = np.random.default_rng(qlen + gap)
+    q = rng.choice(STD, size=qlen).astype(np.uint8)
+    a = (qlen - gap) // 2
+    homolog = np.concatenate([q[:a], q[a + gap:]])
+    sub = rng.random(homolog.size) < 0.1
+    homolog[sub] = rng.choice(STD, size=int(sub.sum()))
+    want, d, _ = _check(monkeypatch, q, [homolog.astype(np.uint8)])
+    assert d["scalar_cells"] == 0 and d["saturated_pairs"] == 0
+    assert max(_runs(want[0].moves, MOVE_UP)) > _seg_len(qlen)
+
+
+@pytest.mark.parametrize("gaps", [(10, 1), (1, 1)], ids=["10-1", "1-1"])
+def test_vertical_gap_met_at_once_by_a_horizontal_one(monkeypatch, gaps):
+    """20 query residues of W deleted where 8 of D are inserted: W against D
+    scores -4, so the path leaves the run of UP moves straight into LEFT
+    moves, the corner where the E tests need E from the final H."""
+    scorer, jax_scorer = create_scorer("BLOSUM_62", *gaps), jax_create_scorer("BLOSUM_62", *gaps)
+    rng = np.random.default_rng(sum(gaps))
+    q = rng.choice(STD, size=120).astype(np.uint8)
+    q[50:70] = _code("W")
+    targets = [np.concatenate([q[:50], np.full(8, _code("D"), np.uint8), q[70:]]),
+               np.concatenate([q[:40], np.full(30, _code("D"), np.uint8), q[50:]])]
+    monkeypatch.delenv("SIFT4G_TPU_NO_SIMD", raising=False)
+    m = PhaseMetrics(enabled=False)
+    got = align_pairs_batch(q, targets, scorer, "SW", threads=2, metrics=m)
+    assert m.phases["align.traceback.native"]["scalar_cells"] == 0
+    monkeypatch.setenv("SIFT4G_TPU_NO_SIMD", "1")
+    want = align_pairs_batch(q, targets, scorer, "SW", threads=2)
+    monkeypatch.delenv("SIFT4G_TPU_NO_SIMD")
+    _assert_same(got, jax_align_pairs_batch(q, targets, jax_scorer, "SW", threads=2))
+    _assert_same(got, want)
+    moves = want[0].moves.tolist()
+    assert any((moves[k], moves[k + 1]) == (MOVE_UP, MOVE_LEFT) for k in range(len(moves) - 1))
+
+
+@pytest.mark.parametrize("case", ["target-repeats", "query-repeats", "both", "tie-heavy"])
+def test_tied_best_cells_take_the_first_in_row_major_order(monkeypatch, case):
+    """Repeats put the best score in several cells: in one row (a motif
+    against three copies of it), in one column (three copies against the
+    motif), in both (two copies against two, 400 residues apart in the
+    target, so that no alignment spans them), or anywhere (a three-letter
+    alphabet); the endpoint is the first of them row by row."""
+    rng = np.random.default_rng(len(case))
+    motif = rng.choice(STD, size=37).astype(np.uint8)
+    spacer = rng.choice(STD, size=11).astype(np.uint8)
+    thrice = np.concatenate([motif, spacer, motif, spacer, motif])
+    if case == "tie-heavy":
+        q = rng.integers(0, 3, 90).astype(np.uint8)
+        targets = [rng.integers(0, 3, 70).astype(np.uint8) for _ in range(4)]
+    elif case == "both":
+        q = np.concatenate([motif, spacer, motif])
+        targets = [np.concatenate([motif, rng.choice(STD, size=400), motif]).astype(np.uint8)]
+    else:
+        q, t = (motif, thrice) if case == "target-repeats" else (thrice, motif)
+        targets = [t.copy(), np.concatenate([spacer, t])]
+    want, d, _ = _check(monkeypatch, q, targets)
+    assert d["scalar_cells"] == 0 and d["saturated_pairs"] == 0
+    if case in ("target-repeats", "query-repeats"):
+        # the motif against itself, in every copy alike: the first copy
+        r = want[0]
+        assert (r.query_start, r.query_end, r.target_start, r.target_end) == \
+            (0, motif.size - 1, 0, motif.size - 1)
+
+
+@pytest.mark.parametrize("q, t", [("W", "G"), ("W" * 50, "D" * 70), ("WWW", "P")],
+                         ids=["1x1", "50x70", "3x1"])
+def test_a_pair_with_no_positive_cell(monkeypatch, q, t):
+    """W against D, G or P scores below 0 everywhere: no cell is positive,
+    the score is 0 and the path is empty."""
+    q = np.array([_code(c) for c in q], dtype=np.uint8)
+    t = np.array([_code(c) for c in t], dtype=np.uint8)
+    want, d, _ = _check(monkeypatch, q, [t])
+    assert d["scalar_cells"] == 0 and d["saturated_pairs"] == 0
+    assert want[0].score == 0 and want[0].moves.size == 0

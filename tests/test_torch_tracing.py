@@ -128,6 +128,33 @@ def test_traceback_counts_the_cells_of_each_path(monkeypatch, mode, qlen, tlen, 
         assert m.phases[span]["seconds"] >= 0
 
 
+@needs_native
+@pytest.mark.parametrize("mode, simd", [("SW", True), ("SW", False), ("NW", True)],
+                         ids=["striped", "no-simd", "nw"])
+def test_traceback_walk_seconds_are_the_striped_pairs_time_after_the_fill(monkeypatch, mode, simd):
+    """``walk_thread_s``: the striped pairs' seconds after their fill, a
+    part of ``striped_thread_s``; none where no pair takes the striped path
+    (``SIFT4G_TPU_NO_SIMD``, NW)."""
+    if simd:
+        monkeypatch.delenv("SIFT4G_TPU_NO_SIMD", raising=False)
+    else:
+        monkeypatch.setenv("SIFT4G_TPU_NO_SIMD", "1")
+    rng = np.random.default_rng(3)
+    q = _codes(rng, 700)
+    homolog = q.copy()
+    homolog[::6] = _codes(rng, homolog[::6].size)
+    targets = [homolog, _codes(rng, 650), q[100:600].copy()]
+    m = PhaseMetrics(enabled=False)
+    align_pairs_batch(q, targets, create_scorer("BLOSUM_62", 10, 1), mode, threads=2, metrics=m)
+    d = m.phases["align.traceback.native"]
+    assert "walk_thread_s" in ALIGN_STATS and "walk_thread_s" in d
+    if mode == "SW" and simd:
+        assert d["striped_cells"] == d["cells"]
+        assert 0 < d["walk_thread_s"] < d["striped_thread_s"]
+    else:
+        assert d["striped_cells"] == 0 and d["walk_thread_s"] == 0
+
+
 @pytest.mark.parametrize("scorer, device, acc", [
     ("grouped", "cuda:0", "int"),
     ("grouped", "cuda:0", "i16"),     # a pair of targets a thread group: 2 x 129 slots
@@ -328,13 +355,13 @@ JOBS = [
     _job(10, search={"seconds": 2.0}, search__scan={"seconds": 1.5}, search__wait={"seconds": 0.1},
          align={"seconds": 5.0, "cells": 600.0}, align__provisional={"cells": 1000.0},
          align__traceback__native={"seconds": 4.0, "striped_thread_s": 2.0,
-                                   "scalar_thread_s": 6.0},
+                                   "scalar_thread_s": 6.0, "walk_thread_s": 0.05},
          align__launch__k1={"launches": 3.0, "cells": 300.0, "launched_cells": 400.0},
          align__launch__k2={"launches": 1.0, "cells": 100.0, "launched_cells": 400.0}),
     _job(30, search={"seconds": 3.0}, search__scan={"seconds": 2.5}, search__wait={"seconds": 0.3},
          align={"seconds": 6.0, "cells": 900.0}, align__provisional={"cells": 1000.0},
          align__traceback__native={"seconds": 5.0, "striped_thread_s": 1.0,
-                                   "scalar_thread_s": 3.0},
+                                   "scalar_thread_s": 3.0, "walk_thread_s": 0.01},
          align__launch__k1={"launches": 2.0, "cells": 200.0, "launched_cells": 200.0}),
     # a failed job counts nowhere
     _job(50, status=-1, search__scan={"seconds": 9.0}, align__provisional={"cells": 9.0},
@@ -348,6 +375,7 @@ JOBS = [
     ("search_wait_ms_per_query.batch", 1e3 * 0.4 / 40),
     ("traceback_native_ms_per_query.batch", 1e3 * 9.0 / 40),
     ("traceback_scalar_pct.batch", 100.0 * 9.0 / 12.0),
+    ("traceback_walk_pct.batch", 100.0 * 0.06 / 3.0),
     ("sw_padding_pct.batch", 100.0 * (1 - 600.0 / 1000.0)),
     ("sw_evicted_pct.batch", 100.0 * (1 - 1500.0 / 2000.0)),
 ])
