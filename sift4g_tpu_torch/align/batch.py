@@ -162,7 +162,6 @@ class BatchAligner:
         backend: str = "auto",
         devices=None,
         b_cap: int = 0,
-        tail_policy: str = "pow2",
         tail_coalesce: bool = True,
         threads: int = 0,
         resident=None,
@@ -183,18 +182,12 @@ class BatchAligner:
             raise ValueError(f"backend cuda needs CUDA devices, got {devices}")
         if backend == "torch" and kinds != {"cpu"}:
             raise ValueError(f"backend torch runs the twin on the CPU, got {devices}")
-        if tail_policy not in ("full", "pow2"):
-            raise ValueError(f"tail_policy must be 'full' or 'pow2', got {tail_policy!r}")
         self.scorer = scorer
         self.mode = mode
         self.backend = backend
         self.devices = devices
         # optional batch-width cap: tests use it to force many groups
         self.b_cap = b_cap
-        # "pow2" shrinks the one remainder group per (query, rung) to the
-        # smallest 256 * 2^k that holds it; "full" pads it to the rung's
-        # batch width.  Scores are identical either way.
-        self.tail_policy = tail_policy
         # merge a query's remainders from smaller rungs into a larger
         # rung's when that costs fewer padded cells (exact: a target is
         # scored exactly at any rung >= its length)
@@ -216,8 +209,10 @@ class BatchAligner:
         return min(b, self.b_cap) if self.b_cap else b
 
     def _group_width(self, count: int, bcap: int) -> int:
-        """Batch width for one group of ``count`` targets (tail policy)."""
-        if self.tail_policy != "pow2" or count >= bcap:
+        """Batch width for one group of ``count`` targets: a full group's
+        ``bcap``, or for the one remainder group per (query, rung) the
+        smallest 256 * 2^k that holds it."""
+        if count >= bcap:
             return bcap
         bw = 256
         while bw < count:

@@ -142,13 +142,13 @@ def shard_record_ranges(database_path: str, n_hosts: int) -> List[Tuple[int, int
 def _merge_candidates(per_host_scored, n_queries: int, max_candidates: int):
     """Global top-k from per-shard top-k lists under (score desc, id asc),
     the single-process truncate order (native search.cpp cand_less)."""
+    from ..pipeline import best_first_order
+
     indices = []
     for qi in range(n_queries):
         scores = np.concatenate([h[qi][0] for h in per_host_scored])
         ids = np.concatenate([h[qi][1] for h in per_host_scored])
-        order = np.lexsort((ids, -scores))
-        keep = order[:max_candidates]
-        indices.append(np.sort(ids[keep]))
+        indices.append(np.sort(ids[best_first_order(scores, ids, max_candidates)]))
     return indices
 
 
@@ -190,7 +190,7 @@ def run_pipeline_multihost(cfg, ctx: HostContext, devices=None):
 
 
 def _run_db_sharded(cfg, ctx: HostContext, devices, log):
-    from ..pipeline import align_database, finish_pipeline
+    from ..pipeline import align_database, best_first_records, finish_pipeline
 
     metrics = cfg.metrics or PhaseMetrics(log=log, enabled=cfg.timings and ctx.is_primary)
     queries = read_fasta(cfg.query_path)
@@ -270,9 +270,7 @@ def _run_db_sharded(cfg, ctx: HostContext, devices, log):
     for p in parts:
         for qi, lst in enumerate(pickle.loads(p)):
             records[qi].extend(lst)
-    for qi in range(len(queries)):
-        records[qi].sort(key=lambda r: (-r.score, r.target_idx))
-        del records[qi][cfg.max_alignments :]
+    records = [best_first_records(r, cfg.max_alignments) for r in records]
 
     finish_pipeline(cfg, queries, records, metrics, devices)
     return queries

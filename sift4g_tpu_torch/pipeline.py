@@ -4,9 +4,10 @@ The phase order and the align phase are those of
 ``sift4g_tpu/pipeline.py`` (reference main.cpp:188-250 and
 database_alignment.cpp:21-127): host k-mer search, then the database is
 re-streamed in chunks and each query's candidates in the chunk are
-scored on the device in one round trip, E-value filtered, capped at
-``max_alignments`` best-first (score desc, database index asc) and
-traced back on the host; then selection, prediction and reports.
+scored on the device in one round trip; then :func:`_keep_and_trace`
+E-value filters them, caps them at ``max_alignments`` best-first
+(:func:`best_first_order`) and traces them back on the host; then
+selection, prediction and reports.
 
 ``PipelineConfig``, ``_query_fanout``, the run-manifest helpers and
 ``finish_pipeline`` are copies of the JAX package's.  Under
@@ -305,6 +306,51 @@ def _overlap_cache(cfg: PipelineConfig, n_queries: int = 1, devices=None):
     return None
 
 
+def best_first_order(scores, ids, cap: int) -> np.ndarray:
+    """Positions of the best ``cap`` rows, best-first: score desc,
+    database id asc on ties (the reference's sort of alignments and of
+    candidates alike; ``scores`` signed integers or floats)."""
+    return np.lexsort((np.asarray(ids, dtype=np.int64), -np.asarray(scores)))[:cap]
+
+
+def best_first_records(records: List[AlignmentRecord], cap: int) -> List[AlignmentRecord]:
+    """``records`` best-first (:func:`best_first_order`), capped at ``cap``:
+    the merge of a query's records across chunks and across hosts."""
+    order = best_first_order([r.score for r in records], [r.target_idx for r in records], cap)
+    return [records[i] for i in order]
+
+
+def _keep_and_trace(query: Chain, ids: np.ndarray, scores: np.ndarray, smin, evalue_params,
+                    max_evalue: float, max_alignments: int, scorer: Scorer, mode: str,
+                    threads: int, metrics: PhaseMetrics, codes_at, name_at
+                    ) -> List[AlignmentRecord]:
+    """One query's alignment records, best-first, from its candidates'
+    global database ``ids`` and ``scores``; both align schedules call it.
+
+    Under ``align.evalue``: keep ``scores >= smin`` (the query's
+    :func:`min_passing_score`, the E-value filter's exact inverse; also
+    right after the device screen, whose non-survivors come back 0), or
+    ``evalues(scores) <= max_evalue`` where ``smin`` is None or below 1;
+    order best-first, cap at ``max_alignments``, take the kept rows'
+    E-values.  Then the host traceback of the kept targets, whose codes
+    and names ``codes_at`` and ``name_at`` give by id."""
+    with metrics.phase("align.evalue"):
+        if smin is not None and smin >= 1:
+            keep = np.flatnonzero(scores >= smin)
+        else:
+            keep = np.flatnonzero(evalues(scores, len(query), evalue_params) <= max_evalue)
+        keep = keep[best_first_order(scores[keep], ids[keep], max_alignments)]
+        kept_ids = ids[keep].tolist()
+        evals = evalues(scores[keep], len(query), evalue_params).tolist()
+    recs = align_pairs_batch(query.codes, [codes_at(t) for t in kept_ids], scorer, mode,
+                             threads=threads, metrics=metrics)
+    for rec, t, ev in zip(recs, kept_ids, evals):
+        rec.target_idx = t
+        rec.target_name = name_at(t)
+        rec.evalue = ev
+    return recs
+
+
 def _run_overlapped(
     cfg: PipelineConfig,
     queries: List[Chain],
@@ -320,9 +366,9 @@ def _run_overlapped(
     so the union of the per-chunk snapshots is a superset of the final
     candidate set; provisional scores of ids evicted later are dropped.
     Kept scores are those of the two-phase run, because the same
-    BatchAligner computes them, and the final E-value filter and the
-    (score desc, id asc) truncation run once, globally: the set the
-    per-chunk truncation and merge produce.
+    BatchAligner computes them, and :func:`_keep_and_trace` runs once per
+    query over its whole candidate set: the set the two-phase run's
+    per-chunk steps and merge produce.
 
     The scores come from slab launches (K1 on a card): an overlapped run
     never builds the resident database, as in the JAX package, whose
@@ -330,7 +376,8 @@ def _run_overlapped(
 
     Spans inside ``search``: ``search.snapshot``, the provisional
     ``align.dispatch`` and ``search.wait`` (the scan blocked on the
-    resolves); inside ``align``: ``align.evalue`` and the traceback's.
+    resolves); inside ``align``: ``align.evalue`` (the provisional scores'
+    read, then the cut of :func:`_keep_and_trace`) and the traceback's.
     ``align.provisional`` counts every cell scored, ``align`` those of
     the final candidate sets, as the two-phase run counts them."""
     from concurrent.futures import ThreadPoolExecutor
@@ -452,23 +499,11 @@ def _run_overlapped(
                 scores = np.fromiter(
                     (prov[qi][int(t)] for t in ids), dtype=np.int64, count=ids.size
                 )
-                evals = evalues(scores, len(query), evalue_params)
-                keep = np.flatnonzero(evals <= cfg.max_evalue)
-                keep = sorted(keep.tolist(), key=lambda i: (-int(scores[i]), int(ids[i])))
-                keep = keep[: cfg.max_alignments]
-            recs = align_pairs_batch(
-                query.codes,
-                [cache.codes_at(int(ids[i])) for i in keep],
-                scorer,
-                cfg.algorithm,
-                threads=cfg.threads,
-                metrics=metrics,
+            results[qi] = _keep_and_trace(
+                query, ids, scores, min_passing_score(cfg.max_evalue, len(query), evalue_params),
+                evalue_params, cfg.max_evalue, cfg.max_alignments, scorer, cfg.algorithm,
+                cfg.threads, metrics, cache.codes_at, cache.name_at,
             )
-            for i, rec in zip(keep, recs):
-                rec.target_idx = int(ids[i])
-                rec.target_name = cache.name_at(int(ids[i]))
-                rec.evalue = float(evals[i])
-                results[qi].append(rec)
     return results
 
 
@@ -531,7 +566,7 @@ def align_database(
 
     ``metrics``: the spans ``align.dispatch`` (with the launches'
     ``align.launch.*``), ``align.fetch`` and ``align.traceback`` (with
-    ``align.evalue`` and ``align_pairs_batch``'s ``align.traceback.*``),
+    :func:`_keep_and_trace`'s ``align.evalue`` and ``align.traceback.*``),
     and the candidates' cells on ``align``."""
     print("** Aligning queries with candidate sequences **", file=log)
     if metrics is None:
@@ -541,7 +576,7 @@ def align_database(
         metrics=metrics,
     )
     results: List[List[AlignmentRecord]] = [[] for _ in queries]
-    remaining = [list(ix) for ix in indices]
+    remaining = [np.asarray(ix, dtype=np.int64) for ix in indices]  # ids ascending
     # integer passing-score thresholds: the exact inverse of the E-value
     # filter, used by the device screen and the host keep filter alike
     smin_all = [min_passing_score(max_evalue, len(q), evalue_params) for q in queries]
@@ -568,29 +603,26 @@ def align_database(
             # slices of a heap-backed part pin the whole part; kept records
             # copy their codes so the part can be evicted below
             consumed_is_mmap = store.latest_is_mmap
-            chunk_used: List[List[int]] = [[] for _ in queries]
+            chunk_used: List[np.ndarray] = [None] * len(queries)
             score_items = []
             active = []
             for qi, query in enumerate(queries):
                 cand = remaining[qi]
-                take = 0
-                while take < len(cand) and cand[take] <= db_end:
-                    take += 1
+                take = int(np.searchsorted(cand, db_end, side="right"))
                 if take == 0:
                     continue
-                chunk_used[qi] = cand[:take]
+                ids = chunk_used[qi] = cand[:take]
                 remaining[qi] = cand[take:]
                 if resident is not None:
-                    ids = np.asarray(chunk_used[qi], dtype=np.int64)
                     lens_q = (cache_offsets[ids + 1] - cache_offsets[ids]).astype(np.int32)
                     # the resident layout is shard-local under record_range
                     targets = resident.packed_targets(ids - rr_lo, lens_q)
                 else:
-                    packed = store.pack_latest(chunk_used[qi])
+                    packed = store.pack_latest(ids)
                     if packed is not None:
                         targets = PackedTargets(*packed)
                     else:  # indices outside the newest part
-                        targets = [store.codes(t) for t in chunk_used[qi]]
+                        targets = [store.codes(t) for t in ids]
                 score_items.append((query.codes, targets))
                 active.append(qi)
                 metrics.add(
@@ -620,47 +652,19 @@ def align_database(
                 store.append_part(codes_n, offsets_n, names_n)
             with metrics.phase("align.traceback"):
                 for qi, scores in zip(active, all_scores):
-                    query = queries[qi]
-                    used = chunk_used[qi]
-                    smin_q = smin_all[qi]
-                    with metrics.phase("align.evalue"):
-                        if smin_q is not None and smin_q >= 1:
-                            # == the evalues() filter by construction; also right
-                            # after the screen (non-survivors come back 0 < smin_q)
-                            keep = np.flatnonzero(scores >= smin_q)
-                        else:
-                            evals_full = evalues(scores, len(query), evalue_params)
-                            keep = np.flatnonzero(evals_full <= max_evalue)
-                        keep = sorted(keep.tolist(), key=lambda i: (-int(scores[i]), used[i]))
-                        keep = keep[:max_alignments]
-                        evals_kept = evalues(
-                            scores[np.asarray(keep, dtype=np.int64)], len(query), evalue_params
-                        )
-                    recs = align_pairs_batch(
-                        query.codes,
-                        [store.codes(used[i]) for i in keep],
-                        scorer,
-                        mode,
-                        threads=threads,
-                        metrics=metrics,
+                    recs = _keep_and_trace(
+                        queries[qi], chunk_used[qi], scores,
+                        smin_all[qi], evalue_params, max_evalue, max_alignments, scorer,
+                        mode, threads, metrics, store.codes, store.name,
                     )
-                    for i, rec, ev in zip(keep, recs, evals_kept):
-                        rec.target_idx = used[i]
-                        rec.target_name = store.name(used[i])
-                        rec.evalue = float(ev)
-                        if not consumed_is_mmap:
+                    if not consumed_is_mmap:
+                        for rec in recs:
                             rec.target_codes = np.array(rec.target_codes, copy=True)
-                        results[qi].append(rec)
-                    if len(results[qi]) > max_alignments:
-                        results[qi].sort(key=lambda r: (-r.score, r.target_idx))
-                        del results[qi][max_alignments:]
+                    results[qi] = best_first_records(results[qi] + recs, max_alignments)
             store.drop_before_latest()
             if not more:
                 break
             more = next_more
-    for qi in range(len(queries)):
-        results[qi].sort(key=lambda r: (-r.score, r.target_idx))
-        del results[qi][max_alignments:]
     return results
 
 

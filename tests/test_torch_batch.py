@@ -108,24 +108,24 @@ def test_screen_gate_refuses_bad_thresholds():
 
 
 def test_tail_policies_score_identically():
+    """The remainder group's width (256 * 2^k, not the rung's full width)
+    leaves the scores exact at every batch-width cap."""
     rng = np.random.default_rng(13)
     q = rng.integers(0, 26, 64).astype(np.uint8)
-    # 700 targets at one rung: full packs 512 + a 512-wide tail for the
-    # 188 remainder; pow2 packs 512 + 256
+    # 700 targets at one rung: b_cap 512 packs 512 + a 256-wide tail for
+    # the 188 remainder, b_cap 256 packs 256 + 256 + 256
     targets = [rng.integers(0, 26, int(rng.integers(30, 120))).astype(np.uint8)
                for _ in range(700)]
     ref = _jax("SW", "numpy").scores_many([(q, targets)])[0]
-    for policy in ("full", "pow2"):
-        al = BatchAligner(SCORER, backend="torch", b_cap=512, tail_policy=policy)
+    for b_cap in (512, 256):
+        al = BatchAligner(SCORER, backend="torch", b_cap=b_cap)
         np.testing.assert_array_equal(al.scores_many([(q, targets)])[0], ref)
     pow2 = BatchAligner(SCORER, backend="torch", b_cap=512)
-    assert pow2.tail_policy == "pow2"
     assert [pow2._group_width(n, 512) for n in (512, 188, 10)] == [512, 256, 256]
     assert pow2._group_width(300, 4096) == 512
-    full = BatchAligner(SCORER, backend="torch", b_cap=512, tail_policy="full")
-    assert full._group_width(188, 512) == 512
-    with pytest.raises(ValueError, match="tail_policy"):
-        BatchAligner(SCORER, backend="torch", tail_policy="half")
+    assert pow2._group_width(700, 512) == 512
+    with pytest.raises(TypeError, match="tail_policy"):
+        BatchAligner(SCORER, backend="torch", tail_policy="full")
 
 
 def test_tail_coalescing_merges_rungs():

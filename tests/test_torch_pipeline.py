@@ -168,3 +168,115 @@ def test_resume_sweeps_only_exact_temp_names(syn):
     assert os.path.exists(notes)
     os.unlink(notes)
     _assert_same_tree(full, resumed)
+
+
+@pytest.mark.parametrize("max_alignments", [400, 3])
+def test_align_parts_merge_best_first(syn, max_alignments):
+    """The two-phase align phase over many database parts merges each
+    part's records best-first under the cap: the files equal those of a
+    run over one part.  The database is written in reverse, so a query's
+    better homologs come in later parts."""
+    import io
+
+    from sift4g_tpu_torch.pipeline import PipelineConfig, run_pipeline
+
+    with open(syn["d"]) as fp:
+        records = [">" + r for r in fp.read().split(">") if r]
+    db = syn["root"] / f"db-reversed-{max_alignments}.fa"
+    db.write_text("".join(reversed(records)))
+    outs = []
+    for chunk in (1_000_000_000, 2_000):
+        out = _out(syn, f"parts-{max_alignments}-{chunk}")
+        run_pipeline(PipelineConfig(
+            query_path=syn["q"], database_path=str(db), subst_path=syn["subst"],
+            out_path=out, sub_results=True, align_backend="native", overlap="off",
+            max_alignments=max_alignments, align_chunk_bytes=chunk, log=io.StringIO(),
+        ))
+        outs.append(out)
+    _assert_same_tree(*outs)
+
+def _brute_cut(ids, scores, evals, max_evalue, cap):
+    """The reference's keep, in plain Python: E-value filter, then (score
+    desc, id asc), then the cap."""
+    kept = [i for i in range(len(ids)) if evals[i] <= max_evalue]
+    return sorted(kept, key=lambda i: (-int(scores[i]), int(ids[i])))[:cap]
+
+
+@pytest.mark.parametrize("case", ["threshold", "no_threshold", "ties_and_cap", "evalues"])
+def test_keep_and_trace_cut(case, monkeypatch):
+    """The one keep-and-trace step of both align schedules: the integer
+    threshold keeps what the E-value filter keeps, the filter stands in
+    where ``min_passing_score`` cannot invert, ties go to the smaller
+    database id, the cap holds, and each record's E-value is that of
+    ``evalues()`` over the whole candidate array."""
+    import dataclasses
+
+    import numpy as np
+
+    from sift4g_tpu_torch import pipeline as tpipe
+    from sift4g_tpu_torch.align.records import AlignmentRecord
+    from sift4g_tpu_torch.core.chain import Chain
+    from sift4g_tpu_torch.core.evalue import create_evalue_params, evalues, min_passing_score
+    from sift4g_tpu_torch.core.scorers import create_scorer
+    from sift4g_tpu_torch.utils import PhaseMetrics
+
+    traced = []
+
+    def fake_align(qcodes, targets, scorer, mode, threads=0, metrics=None):
+        traced.append([int(t[0]) for t in targets])
+        return [AlignmentRecord(0, 0, 0, 0, 0, np.zeros(0, np.uint8)) for _ in targets]
+
+    monkeypatch.setattr(tpipe, "align_pairs_batch", fake_align)
+    rng = np.random.default_rng(41)
+    scorer = create_scorer("BLOSUM_62", 10, 1)
+    query = Chain.from_string("q", "".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), 300)))
+    params = create_evalue_params(150_000_000, scorer)
+    max_evalue, cap = 1e-4, 400
+    smin = min_passing_score(max_evalue, len(query), params)
+    assert smin is not None and smin >= 1
+    n = 2000
+    if case == "no_threshold":
+        # E-values that grow with the score: the statistics cannot invert
+        params = dataclasses.replace(params, lam=-params.lam)
+        max_evalue = 1e12
+        smin = min_passing_score(max_evalue, len(query), params)
+        assert smin is None
+        scores = rng.integers(0, 60, n)
+    elif case == "ties_and_cap":
+        scores = rng.integers(smin - 1, smin + 3, n)
+        cap = 37
+    else:
+        scores = rng.integers(smin - 20, smin + 20, n)
+        scores[:4] = [smin - 1, smin, smin - 1, smin]
+        if case == "threshold":
+            cap = n  # the cut alone decides
+    ids = rng.permutation(10 * n)[:n].astype(np.int64)
+    evals = evalues(scores, len(query), params)
+
+    def cut(smin_q):
+        traced.clear()
+        recs = tpipe._keep_and_trace(
+            query, ids, scores, smin_q, params, max_evalue, cap, scorer, "SW", 1,
+            PhaseMetrics(enabled=False),
+            lambda t: np.array([t], dtype=np.int64), lambda t: f"seq{t}",
+        )
+        return recs, traced[0]
+
+    recs, targets = cut(smin)
+    want = _brute_cut(ids, scores, evals, max_evalue, cap)
+    assert want, "the case keeps no row"
+    assert [r.target_idx for r in recs] == targets == ids[want].tolist()
+    assert [r.target_name for r in recs] == [f"seq{t}" for t in ids[want]]
+    if case == "threshold":
+        kept = set(scores[want].tolist())
+        assert smin in kept and smin - 1 not in kept
+        recs_f, _ = cut(None)
+        assert [(r.target_idx, r.evalue) for r in recs_f] == \
+            [(r.target_idx, r.evalue) for r in recs]
+    elif case == "ties_and_cap":
+        assert len(recs) == cap < int((scores >= smin).sum())
+        pairs = [(-int(s), int(t)) for s, t in zip(scores[want], ids[want])]
+        assert pairs == sorted(pairs) and len({s for s, _ in pairs}) < len(pairs)
+    # "evalues": the cap binds (about 1,000 rows pass), so the kept rows
+    # are not a prefix of the candidates
+    assert [r.evalue for r in recs] == evals[want].tolist()
