@@ -14,13 +14,13 @@ silent run on the CPU: ask for ``torch`` or ``native`` by name there.
 
 from __future__ import annotations
 
-import torch
-
 BACKENDS = ("auto", "cuda", "torch", "native")
 
 
 def best_backend() -> str:
     """The backend ``auto`` stands for: ``cuda``, when torch sees a GPU."""
+    import torch
+
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is visible: --backend cuda (the default) needs a "
@@ -40,6 +40,8 @@ def resolve_backend(backend: str, cards=None):
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
     if backend not in ("auto", "cuda"):
+        import torch
+
         return backend, [torch.device("cpu")]
     backend = best_backend()
     from ..parallel.sharded import make_mesh

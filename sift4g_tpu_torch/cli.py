@@ -46,7 +46,6 @@ from . import __version__
 from .align import BACKENDS, resolve_backend
 from .core.scorers import create_scorer
 from .parallel.multihost import init_distributed_from_env, run_pipeline_multihost
-from .pipeline import PipelineConfig, ResidentRefused, run_pipeline
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -250,6 +249,11 @@ def main(argv=None, metrics=None) -> int:
 
 
 def _run_files(args, query_files, backend, devices, metrics, host_ctx) -> int:
+    # imported here, not with the module: a spawn worker of the subst
+    # finishers' pool re-runs the main script, which under the console
+    # script imports this module, and needs no PyTorch
+    from .pipeline import PipelineConfig, ResidentRefused, run_pipeline
+
     for query_path in query_files:
         if len(query_files) > 1:
             print(f"** Processing query file: {query_path} **", file=sys.stderr)

@@ -190,7 +190,12 @@ def run_pipeline_multihost(cfg, ctx: HostContext, devices=None):
 
 
 def _run_db_sharded(cfg, ctx: HostContext, devices, log):
-    from ..pipeline import align_database, best_first_records, finish_pipeline
+    from ..pipeline import (
+        align_database,
+        best_first_records,
+        finish_pipeline,
+        start_finisher_pool,
+    )
 
     metrics = cfg.metrics or PhaseMetrics(log=log, enabled=cfg.timings and ctx.is_primary)
     queries = read_fasta(cfg.query_path)
@@ -200,6 +205,8 @@ def _run_db_sharded(cfg, ctx: HostContext, devices, log):
         print("** EXITING! No valid queries to process. **", file=log)
         return []
 
+    if ctx.is_primary:
+        start_finisher_pool(cfg, queries)
     ranges = shard_record_ranges(cfg.database_path, ctx.num_processes)
     lo, hi = ranges[ctx.process_id]
     print(

@@ -778,6 +778,7 @@ def run_pipeline(cfg: PipelineConfig, devices=None) -> List[Chain]:
         print("** EXITING! No valid queries to process. **", file=log)
         return []
 
+    start_finisher_pool(cfg, queries)
     cache = _overlap_cache(cfg, len(queries), devices)
     if cache is not None:
         # the records' target codes are views of the cache's mapping
@@ -838,6 +839,24 @@ def predict_device(cfg: PipelineConfig, devices=None) -> torch.device:
     if not isinstance(devices, (list, tuple)):
         devices = [devices]
     return torch.device(devices[0])
+
+
+def start_finisher_pool(cfg: PipelineConfig, queries: List[Chain]) -> None:
+    """At a job's start: the subst finishers' process pool
+    (``predict_subst.FinisherPool.start_for_job``) may start now, so that
+    its workers start during the search, where device predict will finish
+    subst queries: those up to ``MAX_DEVICE_QUERY_LEN`` residues with a
+    subst file."""
+    if cfg.predict_backend != "device" or not cfg.subst_path:
+        return
+    from .io.subst import subst_file_name
+    from .sift.predict_batch import MAX_DEVICE_QUERY_LEN
+    from .sift.predict_subst import POOL
+
+    POOL.start_for_job(sum(
+        1 for q in queries
+        if len(q) <= MAX_DEVICE_QUERY_LEN
+        and os.path.isfile(subst_file_name(q.name, cfg.subst_path))))
 
 
 def finish_pipeline(
@@ -948,13 +967,17 @@ def _predict_on_device(cfg, queries, all_names, all_rows, device_qis, subst_path
                        metrics) -> None:
     """The device-predict branch of :func:`finish_pipeline`: row
     preparation over the host threads (span ``predict.prep``), the subst
-    finishers (a spawn process pool from 256 subst queries), the batched
-    launches (``predict_batch.predict_matrix_batch``: spans
-    ``predict.pack``, ``predict.fetch``, ``predict.finish``) and the
-    finishers' drain (``predict.finish`` too).  The finishers' counts
+    finishers (``predict_subst.JobFinishers``: in the process's spawn pool,
+    which :func:`start_finisher_pool` starts and the process keeps across
+    its jobs, once its workers have answered, else on the writer
+    threads), the batched launches
+    (``predict_batch.predict_matrix_batch``: spans ``predict.pack``,
+    ``predict.fetch``, ``predict.finish``) and the pool's drain
+    (``predict.finish`` too).  The finishers' counts
     (``predict_subst.finish_counts``) come back from the writer threads or
     the pool and are added to ``predict.finish`` here, on the job's
-    thread."""
+    thread, with ``pooled_positions``: the positions of the queries
+    finished in a pool worker."""
     from .sift.predict import prepare_rows
     from .sift.predict_batch import predict_matrix_batch
 
@@ -973,52 +996,34 @@ def _predict_on_device(cfg, queries, all_names, all_rows, device_qis, subst_path
                 prepared = list(ex.map(_prep, device_qis))
         else:
             prepared = [_prep(qi) for qi in device_qis]
-    finishers = None
-    subst_exec, subst_futs = None, []
+    finishers = subst = None
     if subst_paths:
         from .io.subst import read_subst_lines
-        from .sift.predict_subst import (
-            finish_subst_query,
-            finish_subst_task,
-            make_subst_executor,
-        )
+        from .sift.predict_subst import JobFinishers
 
-        # at many subst queries the finishers' GIL-held numpy share
-        # serialises the writer threads; a small spawn process pool
-        # scales them (predict_subst docstrings)
-        subst_exec = make_subst_executor(len(subst_paths))
+        subst = JobFinishers(log)
         finishers = [None] * len(device_qis)
         for k, qi in enumerate(device_qis):
             sp = subst_paths.get(qi)
-            if sp is None:
-                continue
-            args = (queries[qi], prepared[k], read_subst_lines(sp),
+            if sp is not None:
+                finishers[k] = subst.finisher(
+                    queries[qi], prepared[k], read_subst_lines(sp),
                     create_file_name(queries[qi].name, cfg.out_path, ".SIFTprediction"))
-            if subst_exec is not None:
-                finishers[k] = (
-                    lambda scores, a=args: subst_futs.append(subst_exec.submit(
-                        finish_subst_task,
-                        (a[0].name, a[0].letters, a[1], a[2], np.ascontiguousarray(scores),
-                         a[3]),
-                    ))
-                )
-            else:
-                finishers[k] = (
-                    lambda scores, a=args:
-                    finish_subst_query(a[0], a[1], a[2], scores, a[3], log=log)
-                )
     try:
         counts = predict_matrix_batch(
             [queries[qi] for qi in device_qis], prepared, cfg.out_path,
             threads=cfg.threads, metrics=metrics, finishers=finishers, device=device,
             log=log,
         )
-        if subst_futs:
+        if subst is not None:
             with metrics.phase("predict.finish"):
-                # surface worker exceptions
-                counts += [fut.result() for fut in subst_futs]
+                pooled_counts, pooled = subst.drain()
+            counts += pooled_counts
+            metrics.add("predict.finish", pooled_positions=pooled)
     finally:
-        if subst_exec is not None:
-            subst_exec.shutdown()
+        if subst is not None:
+            # the pool outlives the job: none of a failed job's finishers
+            # may write after it
+            subst.cancel()
     for c in counts:
         metrics.add("predict.finish", **c)

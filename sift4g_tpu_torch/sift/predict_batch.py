@@ -178,7 +178,7 @@ def predict_matrix_batch(
     ``finishers``: optional per-query callables ``f(scores_f32)`` (scores
     trimmed to the query's length) that complete the query instead of
     the full-matrix write: the subst-mode hybrid
-    (``predict_subst.finish_subst_query``) plugs in here, so subst and
+    (``predict_subst.JobFinishers.finisher``) plugs in here, so subst and
     matrix queries share the same launches.
 
     Software-pipelined: chunk k+1 is packed and queued before chunk k's

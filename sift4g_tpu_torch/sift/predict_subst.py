@@ -35,6 +35,13 @@ of protection:
 Median seq info (the other printed column) is always host float64
 (scores.add_median_seq_info, memoized per keep-mask).
 
+Where the finishers run: that float64 NumPy holds the GIL, so a job's
+finishers (:class:`JobFinishers`) go to one spawn process pool a process
+(:class:`FinisherPool`, ``POOL``), kept across its jobs, once its workers
+have started; until then, and where the pool is not started, they run on
+the device branch's writer threads.  The files are the same bytes either
+way.
+
 In the port the device branch of ``pipeline.finish_pipeline`` calls the
 finishers here, with the screen from ``scores_torch.py``.  The copy drops
 the "stale .so" ``hasattr`` guard around the native weights helper.
@@ -42,9 +49,12 @@ the "stale .so" ``hasattr`` guard around the native weights helper.
 
 from __future__ import annotations
 
+import io
 import os
 import sys
-from typing import Dict, List, Optional
+from concurrent.futures import Future, wait
+from concurrent.futures.process import BrokenProcessPool
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -135,59 +145,226 @@ def finish_counts(n_positions: int, exact: int, fallback: bool = False) -> Dict[
             "fallback_positions": float(n_positions) if fallback else 0.0}
 
 
-def finish_subst_task(payload) -> Dict[str, float]:
-    """Process-pool entry for one subst finisher (picklable flat payload;
-    used by the pipeline when the subst query count is large — the
-    finisher's GIL-held numpy share (~6 ms/query) serializes a THREAD
-    pool, measured as ~125 s of the writers' drain at 20k queries).
-    Workers import only numpy/scipy modules (no JAX).  Returns the
-    finisher's counts, which the pipeline adds on the job's thread."""
-    (name, letters, rows, subst_lines, f32_scores, out_path) = payload
-    query = Chain.from_string(name, letters)
-    return finish_subst_query(query, rows, subst_lines, f32_scores, out_path)
+def finish_subst_task(payload) -> Tuple[Dict[str, float], str]:
+    """Process-pool entry for one subst finisher (a picklable flat
+    payload; :class:`FinisherPool`).  Workers import only the port's host
+    modules (no JAX).  Returns the finisher's counts, which the job's
+    thread adds to its metrics, and what the finisher printed (its
+    fallback notice), which the job's thread prints to the job's log: a
+    worker's stderr is not the job's log."""
+    (name, letters, rows, subst_lines, f32_scores, out_path, eps_screen) = payload
+    log = io.StringIO()
+    counts = finish_subst_query(Chain.from_string(name, letters), rows, subst_lines,
+                                f32_scores, out_path, eps_screen=eps_screen, log=log)
+    return counts, log.getvalue()
 
 
-def make_subst_executor(n_subst: int):
-    """A spawn ProcessPoolExecutor for the finishers, or None to run them
-    inline on the caller's thread pool.  SIFT4G_TPU_SUBST_PROCS forces a
-    worker count (0 disables); default: engage from 256 subst queries
-    with min(3, cores-1) workers (the parent keeps a core for packing
-    and device fetches)."""
-    import multiprocessing
+# a job of this many device subst queries starts the pool in a process
+# that has run no such job before
+POOL_FROM_QUERIES = 256
 
+
+def _knob() -> Optional[int]:
+    """``SIFT4G_TPU_SUBST_PROCS``, read at every job: None where unset."""
     knob = os.environ.get("SIFT4G_TPU_SUBST_PROCS", "")
-    if knob:
-        try:
-            n_procs = int(knob)
-        except ValueError:
-            raise ValueError(
-                f"environment variable SIFT4G_TPU_SUBST_PROCS={knob!r} "
-                "is not an integer"
-            ) from None
-    else:
-        if n_subst < 256:
-            return None
-        try:
-            n_cores = len(os.sched_getaffinity(0))
-        except (AttributeError, OSError):
-            n_cores = os.cpu_count() or 1
-        n_procs = min(3, max(1, n_cores - 1))
-    if n_procs <= 0:
+    if not knob:
         return None
-    from concurrent.futures import ProcessPoolExecutor
-
     try:
-        # spawn, not fork: the parent is multi-threaded (writer pool +
-        # JAX runtime threads) when workers start, and a fork could
-        # inherit a lock mid-acquisition and deadlock the child.  Worker
-        # startup re-imports only numpy/scipy modules (~2.4 s, no JAX) —
-        # amortized over hundreds of queries per worker.
-        return ProcessPoolExecutor(
-            max_workers=n_procs,
-            mp_context=multiprocessing.get_context("spawn"),
-        )
-    except (OSError, ValueError):
-        return None
+        return max(0, int(knob))
+    except ValueError:
+        raise ValueError(
+            f"environment variable SIFT4G_TPU_SUBST_PROCS={knob!r} is not an integer"
+        ) from None
+
+
+def _default_width() -> int:
+    try:
+        n_cores = len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):
+        n_cores = os.cpu_count() or 1
+    # the job's thread keeps a core for packing and device fetches
+    return min(3, max(1, n_cores - 1))
+
+
+def _worker_ready() -> int:
+    """The no-op a pool worker answers once it can run a finisher: it
+    imports this module and binds the native library on the way."""
+    from .. import native
+
+    native.load()
+    return os.getpid()
+
+
+class FinisherPool:
+    """The subst finishers' spawn process pool of one process (``POOL``).
+
+    The finishers' float64 NumPy holds the GIL (about 6-11 ms a query),
+    so on the writer threads they serialise the job's thread, which
+    dispatches the device chunks; in worker processes they leave it the
+    GIL.  Spawning the workers costs seconds, so the pool is started once
+    and kept for the process's later jobs (a daemon's, the benchmark's
+    warm process's).  :meth:`start_for_job`, at a job's start, decides
+    whether to start it; its workers start in the background, during the
+    job's search, and until they have answered a no-op (:meth:`ready`) a
+    job runs its finishers inline.  A job that finds a worker dead drops
+    the pool (:meth:`close`), and a later job starts another.  At exit
+    the workers are ended at once, not joined: one still starting would
+    hold the exit until it had imported its modules.
+
+    It uses two CPython internals, which every Python from 3.10 (the
+    package's floor) has: ``threading._register_atexit`` and
+    ``ProcessPoolExecutor._processes``."""
+
+    def __init__(self):
+        self.executor = None
+        self.width = 0
+        self.answered = ()      # the no-op's futures, one a worker
+        self.ran_subst_job = False
+        self._exit_hook = False
+
+    def start_for_job(self, n_subst: int) -> None:
+        """The start rule, at the start of a job that device predict may
+        finish ``n_subst`` subst queries of.  Unset,
+        ``SIFT4G_TPU_SUBST_PROCS`` leaves it to what the process has seen:
+        the pool starts at the process's second such job, or at a job of
+        ``POOL_FROM_QUERIES`` of them, and is kept.  A number starts that
+        many workers from the first job (:meth:`for_job` waits for them);
+        0 starts none and leaves a live pool as it is."""
+        if n_subst <= 0:
+            return
+        knob = _knob()
+        if knob is not None:
+            width = knob
+        elif self.executor is not None:
+            width = 0
+        elif self.ran_subst_job or n_subst >= POOL_FROM_QUERIES:
+            width = _default_width()
+        else:
+            width = 0
+        self.ran_subst_job = True
+        if width > 0:
+            self._start(width)
+
+    def for_job(self) -> bool:
+        """Whether a job's finishers go to the pool, once :meth:`ready`:
+        where a pool was started and ``SIFT4G_TPU_SUBST_PROCS`` is not 0.
+        Under a number, waits for the workers to start."""
+        knob = _knob()
+        if self.executor is None or knob == 0:
+            return False
+        if knob is not None:
+            wait(self.answered)
+        return True
+
+    def _start(self, width: int) -> None:
+        if self.executor is not None and self.width == width:
+            return
+        self.close()
+        import multiprocessing
+        import threading
+        from concurrent.futures import ProcessPoolExecutor
+
+        try:
+            # spawn, not fork: the parent is multi-threaded (writer pool,
+            # PyTorch's threads) when workers start, and a fork could
+            # inherit a lock mid-acquisition and deadlock the child
+            self.executor = ProcessPoolExecutor(
+                max_workers=width, mp_context=multiprocessing.get_context("spawn"))
+        except (OSError, ValueError):
+            return
+        self.width = width
+        if not self._exit_hook:
+            # concurrent.futures joins its pools' workers in a hook of the
+            # same kind, registered when it was imported; these hooks run
+            # last registered first, so this one ends the workers before
+            self._exit_hook = True
+            threading._register_atexit(self.close)
+        # each submit that finds no idle worker spawns one
+        self.answered = [self.executor.submit(_worker_ready) for _ in range(width)]
+
+    def ready(self) -> bool:
+        """Whether the workers have answered the no-op."""
+        return self.executor is not None and all(f.done() for f in self.answered)
+
+    def submit(self, payload) -> Future:
+        """:func:`finish_subst_task` of ``payload`` in a worker; raises
+        ``BrokenProcessPool`` if a worker has died."""
+        return self.executor.submit(finish_subst_task, payload)
+
+    def close(self) -> None:
+        """Stop the workers now; a later job may start new ones."""
+        ex, self.executor, self.answered = self.executor, None, ()
+        if ex is None:
+            return
+        # the executor has no public way to end its workers before 3.14
+        procs = list(ex._processes.values()) if ex._processes else []
+        ex.shutdown(wait=False, cancel_futures=True)
+        for p in procs:
+            p.terminate()
+
+
+POOL = FinisherPool()
+
+
+class JobFinishers:
+    """One job's subst finishers (``pipeline._predict_on_device``): each
+    runs in the process's pool (``POOL``) once its workers have answered,
+    else inline on the writer thread that calls it."""
+
+    def __init__(self, log=sys.stderr):
+        self.log = log
+        self.pool = POOL if POOL.for_job() else None
+        self.sent = []          # (future, the finisher's arguments)
+        self.broken = False
+
+    def finisher(self, query: Chain, rows: np.ndarray, subst_lines: List[str], out_path: str):
+        """The ``finishers`` hook of ``predict_batch.predict_matrix_batch``
+        for one query: it returns the counts of an inline finisher, None
+        for one sent to the pool (:meth:`drain` collects those)."""
+        return lambda scores: self._finish((query, rows, subst_lines, scores, out_path))
+
+    def _finish(self, args):
+        query, rows, subst_lines, scores, out_path = args
+        if self.pool is not None and not self.broken and self.pool.ready():
+            try:
+                fut = self.pool.submit((query.name, query.letters, rows, subst_lines,
+                                        np.ascontiguousarray(scores), out_path, EPS_SCREEN))
+            except BrokenProcessPool:
+                self.broken = True
+            else:
+                self.sent.append((fut, args))
+                return None
+        return finish_subst_query(*args, log=self.log)
+
+    def drain(self) -> Tuple[List[Dict[str, float]], float]:
+        """Wait for the finishers sent to the pool, on the job's thread.
+        Returns their counts and the positions of the queries they
+        finished in a worker; prints their notices to the job's log.
+        A finisher a dead worker left unfinished reruns here, inline, and
+        the pool is dropped; any other worker exception is raised."""
+        counts, pooled = [], 0.0
+        for fut, args in self.sent:
+            try:
+                c, notice = fut.result()
+            except BrokenProcessPool:
+                self.broken = True
+                counts.append(finish_subst_query(*args, log=self.log))
+                continue
+            print(notice, end="", file=self.log)
+            counts.append(c)
+            pooled += c["positions"]
+        if self.broken:
+            self.pool.close()
+        return counts, pooled
+
+    def cancel(self) -> None:
+        """After a job's error: cancel its finishers that no worker has
+        taken, and wait for the rest, so that none of the job's files is
+        written after the job has ended.  Once :meth:`drain` has
+        returned, there is nothing left to do."""
+        for fut, _ in self.sent:
+            fut.cancel()
+        wait([fut for fut, _ in self.sent])
 
 
 def finish_subst_query(

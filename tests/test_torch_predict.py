@@ -13,6 +13,8 @@ input under another depth or chunk width: byte-identical."""
 import filecmp
 import io
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -33,6 +35,19 @@ torch.set_num_threads(1)
 X = ord("X") - ord("A")
 CPU = torch.device("cpu")
 STD20 = np.array([ord(c) - ord("A") for c in "ACDEFGHIKLMNPQRSTVWY"])
+
+
+@pytest.fixture(autouse=True)
+def _fresh_finisher_pool(monkeypatch):
+    """The port keeps one subst finisher pool a process
+    (``predict_subst.POOL``), started from a process's second
+    device-predict job with subst queries: each test starts with a
+    process that has run no such job and holds no pool, and leaves none."""
+    from sift4g_tpu_torch.sift import predict_subst
+
+    monkeypatch.setattr(predict_subst, "POOL", predict_subst.FinisherPool())
+    yield
+    predict_subst.POOL.close()
 
 
 def _random_alignment(rng, n, L):
@@ -407,7 +422,7 @@ def _homolog_inputs(tmp_path, seed, qlens, n_db=40, subst=True):
     return qs
 
 
-def _run(tmp_path, tag, **kw):
+def _run(tmp_path, tag, log=None, **kw):
     from sift4g_tpu_torch.pipeline import PipelineConfig, run_pipeline
     from sift4g_tpu_torch.utils import PhaseMetrics
 
@@ -416,7 +431,7 @@ def _run(tmp_path, tag, **kw):
     metrics = PhaseMetrics(log=io.StringIO(), enabled=False)
     cfg = PipelineConfig(query_path=str(tmp_path / "q.fa"), database_path=str(tmp_path / "db.fa"),
                          out_path=str(out), align_backend="torch", overlap="off",
-                         log=io.StringIO(), metrics=metrics, **kw)
+                         log=io.StringIO() if log is None else log, metrics=metrics, **kw)
     run_pipeline(cfg)
     return out, metrics
 
@@ -470,6 +485,222 @@ def test_pipeline_subst_process_pool_byte_identical(tmp_path, monkeypatch):
     assert m.phases["predict.finish"]["positions"] == 200.0
     for name in sorted(os.listdir(host)):
         assert filecmp.cmp(host / name, pool / name, shallow=False), name
+
+
+# ---- the finishers' pool, kept across a process's jobs ----
+
+WAIT_S = 120
+
+
+def _same_files(want, got):
+    names = sorted(os.listdir(want))
+    assert sum(n.endswith(".SIFTprediction") for n in names) > 0
+    assert names == sorted(os.listdir(got))
+    for name in names:
+        assert filecmp.cmp(want / name, got / name, shallow=False), name
+
+
+def _finish(m):
+    return m.phases["predict.finish"]
+
+
+def test_finisher_pool_starts_at_the_second_subst_job(tmp_path, monkeypatch):
+    """A process's first device-predict job with subst queries (under 256,
+    the knob unset) spawns nothing and runs its finishers inline; the
+    second starts the pool before its search and, once the workers
+    answer, sends every finisher there.  Both jobs write the host oracle's bytes."""
+    import multiprocessing
+    from concurrent.futures import wait
+
+    from sift4g_tpu_torch import pipeline
+    from sift4g_tpu_torch.sift import predict_subst
+
+    monkeypatch.delenv("SIFT4G_TPU_SUBST_PROCS", raising=False)
+    _homolog_inputs(tmp_path, 7, (80, 120, 150))
+    sub = str(tmp_path / "subst")
+    host, _ = _run(tmp_path, "host", predict_backend="host", subst_path=sub)
+    first, m1 = _run(tmp_path, "first", predict_backend="device", subst_path=sub)
+    assert multiprocessing.active_children() == []
+    assert predict_subst.POOL.executor is None
+    assert _finish(m1)["pooled_positions"] == 0
+    assert _finish(m1)["positions"] == 350.0
+
+    real = PB.predict_matrix_batch
+
+    def after_the_workers_answer(*a, **kw):
+        done, _ = wait(predict_subst.POOL.answered, timeout=WAIT_S)
+        assert len(done) == predict_subst.POOL.width > 0
+        return real(*a, **kw)
+
+    started_before_predict = []
+    real_finish = pipeline.finish_pipeline
+
+    def finish(*a, **kw):
+        started_before_predict.append(predict_subst.POOL.executor is not None)
+        return real_finish(*a, **kw)
+
+    monkeypatch.setattr(PB, "predict_matrix_batch", after_the_workers_answer)
+    monkeypatch.setattr(pipeline, "finish_pipeline", finish)
+    second, m2 = _run(tmp_path, "second", predict_backend="device", subst_path=sub)
+    assert started_before_predict == [True]
+    assert _finish(m2)["pooled_positions"] == _finish(m2)["positions"] == 350.0
+    assert {k: _finish(m2)[k] for k in ("exact_positions", "fallback_positions")} == \
+        {k: _finish(m1)[k] for k in ("exact_positions", "fallback_positions")}
+    _same_files(host, first)
+    _same_files(host, second)
+
+
+def test_knob_zero_keeps_finishers_inline_beside_a_live_pool(tmp_path, monkeypatch):
+    """``SIFT4G_TPU_SUBST_PROCS=0``, read at every job, keeps the finishers
+    in the process with a pool alive, and leaves that pool as it was."""
+    from sift4g_tpu_torch.sift import predict_subst
+
+    _homolog_inputs(tmp_path, 8, (90, 140))
+    sub = str(tmp_path / "subst")
+    host, _ = _run(tmp_path, "host", predict_backend="host", subst_path=sub)
+    monkeypatch.setenv("SIFT4G_TPU_SUBST_PROCS", "1")
+    pooled, m1 = _run(tmp_path, "pooled", predict_backend="device", subst_path=sub)
+    assert _finish(m1)["pooled_positions"] == _finish(m1)["positions"] == 230.0
+    pool = predict_subst.POOL.executor
+    (pid,) = [f.result(timeout=WAIT_S) for f in predict_subst.POOL.answered]
+    monkeypatch.setenv("SIFT4G_TPU_SUBST_PROCS", "0")
+    for tag in ("inline", "inline_again"):
+        out, m = _run(tmp_path, tag, predict_backend="device", subst_path=sub)
+        assert _finish(m)["pooled_positions"] == 0
+        assert _finish(m)["positions"] == 230.0
+        _same_files(host, out)
+    assert predict_subst.POOL.executor is pool
+    os.kill(pid, 0)  # the worker still runs
+    _same_files(host, pooled)
+
+
+def test_a_dead_worker_leaves_its_finishers_to_the_job(tmp_path, monkeypatch):
+    """A worker killed between jobs: the next job reruns the finishers it
+    sent to the broken pool inline, writes every file, and drops the pool;
+    the job after it starts a fresh pool.  A worker's fallback notice
+    reaches the job's log."""
+    import signal
+
+    from sift4g_tpu_torch.sift import predict_subst
+
+    _homolog_inputs(tmp_path, 9, (70, 110, 160))
+    sub = str(tmp_path / "subst")
+    host, _ = _run(tmp_path, "host", predict_backend="host", subst_path=sub)
+    monkeypatch.setenv("SIFT4G_TPU_SUBST_PROCS", "1")
+    _, m1 = _run(tmp_path, "pooled", predict_backend="device", subst_path=sub)
+    assert _finish(m1)["pooled_positions"] == 340.0
+    broken = predict_subst.POOL.executor
+    (pid,) = [f.result(timeout=WAIT_S) for f in predict_subst.POOL.answered]
+    os.kill(pid, signal.SIGKILL)
+
+    after, m2 = _run(tmp_path, "after_the_kill", predict_backend="device", subst_path=sub)
+    assert _finish(m2)["pooled_positions"] == 0
+    assert _finish(m2)["positions"] == 340.0
+    assert predict_subst.POOL.executor is None
+    _same_files(host, after)
+
+    # a screen margin of 0 fails the verification of every query whose
+    # float32 rows are not exact (here Q2 alone): it falls back whole, in
+    # the fresh pool's worker, and says so
+    monkeypatch.setattr(predict_subst, "EPS_SCREEN", 0.0)
+    log = io.StringIO()
+    fresh, m3 = _run(tmp_path, "fresh", log=log, predict_backend="device", subst_path=sub)
+    assert predict_subst.POOL.executor not in (None, broken)
+    (new_pid,) = [f.result(timeout=WAIT_S) for f in predict_subst.POOL.answered]
+    assert new_pid != pid
+    assert _finish(m3)["pooled_positions"] == _finish(m3)["positions"] == 340.0
+    assert _finish(m3)["fallback_positions"] == 160.0
+    assert log.getvalue().count("falling back to the float64 oracle") == 1
+    assert "at query [ Q2 ]: falling back" in log.getvalue()
+    _same_files(host, fresh)
+
+
+def test_finishers_from_many_writer_threads_all_reach_the_pool(tmp_path, monkeypatch):
+    """Four writer threads a core, switching every microsecond: each
+    finisher a writer thread sends to the pool is drained once, and every
+    file is the host oracle's."""
+    from sift4g_tpu_torch.sift import predict_subst
+
+    monkeypatch.setenv("SIFT4G_TPU_SUBST_PROCS", "2")
+    rng = np.random.default_rng(41)
+    cases = []
+    for i in range(48):
+        query, rows, lines = _random_case(rng)
+        cases.append((Chain.from_string(f"Q{i}", query.letters), rows, lines))
+    predict_subst.POOL.start_for_job(len(cases))
+    job = predict_subst.JobFinishers(io.StringIO())
+    finishers = [job.finisher(q, rows, lines, str(tmp_path / f"{q.name}.SIFTprediction"))
+                 for q, rows, lines in cases]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        inline = PB.predict_matrix_batch([q for q, _, _ in cases], [r for _, r, _ in cases],
+                                         str(tmp_path), q_chunk=8, threads=4 * (os.cpu_count() or 1),
+                                         finishers=finishers, device=CPU)
+    finally:
+        sys.setswitchinterval(interval)
+    counts, pooled = job.drain()
+    assert inline == []
+    assert len(counts) == len(cases)
+    assert pooled == sum(c["positions"] for c in counts) == sum(len(q) for q, _, _ in cases)
+    for q, rows, lines in cases:
+        want = tmp_path / f"want_{q.name}"
+        predict_prepared(q, rows, lines, str(want))
+        assert filecmp.cmp(want, tmp_path / f"{q.name}.SIFTprediction", shallow=False), q.name
+
+
+def test_a_failed_job_leaves_no_finisher_behind(tmp_path, monkeypatch):
+    """A job whose batch raises after its finishers went to the pool:
+    the error reaches the caller once none of them is pending, so no
+    finisher of the job writes after it; each file it did write is the
+    host oracle's, and the pool stays for the next job."""
+    from sift4g_tpu_torch.sift import predict_subst
+
+    _homolog_inputs(tmp_path, 10, (80, 120, 150))
+    sub = str(tmp_path / "subst")
+    host, _ = _run(tmp_path, "host", predict_backend="host", subst_path=sub)
+    monkeypatch.setenv("SIFT4G_TPU_SUBST_PROCS", "1")
+    jobs = []
+    real_job = predict_subst.JobFinishers
+
+    def job(*a, **kw):
+        jobs.append(real_job(*a, **kw))
+        return jobs[-1]
+
+    real = PB.predict_matrix_batch
+
+    def fails_after_the_finishers(*a, **kw):
+        real(*a, **kw)
+        assert jobs[-1].sent
+        raise RuntimeError("the batch failed")
+
+    monkeypatch.setattr(predict_subst, "JobFinishers", job)
+    monkeypatch.setattr(PB, "predict_matrix_batch", fails_after_the_finishers)
+    with pytest.raises(RuntimeError, match="the batch failed"):
+        _run(tmp_path, "failed", predict_backend="device", subst_path=sub)
+    (failed,) = jobs
+    assert len(failed.sent) == 3
+    assert all(fut.done() for fut, _ in failed.sent)
+    finished = {args[0].name for fut, args in failed.sent if not fut.cancelled()}
+    written = sorted(n for n in os.listdir(tmp_path / "failed") if n.endswith(".SIFTprediction"))
+    assert written == sorted(f"{name}.SIFTprediction" for name in finished)
+    for name in written:
+        assert filecmp.cmp(host / name, tmp_path / "failed" / name, shallow=False), name
+    pool = predict_subst.POOL.executor
+    monkeypatch.setattr(PB, "predict_matrix_batch", real)
+    again, m = _run(tmp_path, "again", predict_backend="device", subst_path=sub)
+    assert predict_subst.POOL.executor is pool
+    assert _finish(m)["pooled_positions"] == _finish(m)["positions"] == 350.0
+    _same_files(host, again)
+
+
+def test_the_console_script_imports_no_pytorch():
+    """A spawn worker of the finishers' pool re-runs the parent's main
+    script; under the console script that imports the CLI module, which
+    imports no PyTorch until it runs a job."""
+    code = ("import sys, sift4g_tpu_torch.cli, sift4g_tpu_torch.sift.predict_subst; "
+            "sys.exit('torch' in sys.modules)")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=WAIT_S)
 
 
 def test_predict_device_follows_the_backend():

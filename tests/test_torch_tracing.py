@@ -31,6 +31,19 @@ torch.set_num_threads(1)
 needs_native = pytest.mark.skipif(native.load() is None, reason="native engine unavailable")
 
 
+@pytest.fixture(autouse=True)
+def _fresh_finisher_pool(monkeypatch):
+    """The port keeps one subst finisher pool a process
+    (``predict_subst.POOL``), started from a process's second
+    device-predict job with subst queries: each test starts with a
+    process that has run no such job and holds no pool, and leaves none."""
+    from sift4g_tpu_torch.sift import predict_subst
+
+    monkeypatch.setattr(predict_subst, "POOL", predict_subst.FinisherPool())
+    yield
+    predict_subst.POOL.close()
+
+
 def _ranges(prof):
     """(name, thread id, start us, end us) of the profiler's ranges."""
     return [(e.name, e.thread, e.time_range.start, e.time_range.end)
